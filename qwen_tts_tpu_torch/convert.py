@@ -1,0 +1,54 @@
+"""Carry parameters across from the JAX package.
+
+``convert_params`` takes the JAX package's ``(talker, subtalker, codec)``
+parameter trees with numpy arrays as leaves (the caller applies ``np.asarray``
+on the JAX side, so this module needs neither jax nor ``ml_dtypes``) and
+returns the port's trees: the same keys, nesting and layouts, as tensors on
+one device. Both packages then compute the same thing.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from qwen_tts_tpu_torch.utils import Device, resolve_device
+
+
+def _tensor(a: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    a = np.array(a, order="C")  # an owned, writable copy
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
+        t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device, dtype=dtype)
+
+
+def convert_tree(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
+    """Map every array leaf of nested dicts/lists to a tensor."""
+    if isinstance(tree, dict):
+        return {k: convert_tree(v, device, dtype) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(convert_tree(v, device, dtype) for v in tree)
+    return _tensor(np.asarray(tree), device, dtype)
+
+
+def convert_params(
+    talker: dict,
+    subtalker: dict,
+    codec: Optional[dict] = None,
+    *,
+    talker_dtype: torch.dtype = torch.bfloat16,
+    codec_dtype: torch.dtype = torch.float32,
+    device: Device = None,
+) -> Tuple[dict, dict, Optional[dict]]:
+    """JAX loader trees (numpy leaves) → the port's trees on ``device``
+    (CUDA unless given)."""
+    device = resolve_device(device)
+    return (
+        convert_tree(talker, device, talker_dtype),
+        convert_tree(subtalker, device, talker_dtype),
+        None if codec is None else convert_tree(codec, device, codec_dtype),
+    )

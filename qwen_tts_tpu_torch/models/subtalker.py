@@ -1,0 +1,120 @@
+"""Sub-talker ("code predictor"): expands each talker step into the remaining
+codebook groups (PyTorch counterpart of ``qwen_tts_tpu/models/subtalker.py``).
+
+A G-position sequential micro-decode per frame:
+
+* position 0: the talker's post-norm last hidden state;
+* position 1: the talker codec embedding of the frame's codebook-0 token; its
+  output goes through ``lm_heads[0]`` → the group-1 token;
+* position k >= 2: ``embeds[k-2]`` of the previous group's token; its output
+  goes through ``lm_heads[k-1]`` → the group-k token.
+
+Inputs pass through ``small_to_mtp_projection`` when the dims differ. The
+group tables and heads are stacked ``[G-1, V, D]`` / ``[G-1, D, V]``. Each
+micro-step runs the 5-layer trunk's decode step over a ``[L, B, G, KV, hd]``
+cache, so the decode-attention kernel launches ``G × L`` times per frame.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from qwen_tts_tpu_torch.config import CodePredictorConfig
+from qwen_tts_tpu_torch.models.trunk import TrunkDims, trunk_decode_step
+from qwen_tts_tpu_torch.ops.norms import rms_norm
+from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
+from qwen_tts_tpu_torch.ops.sampling import SamplingConfig, sample_token
+
+
+def subtalker_dims(cfg: CodePredictorConfig) -> TrunkDims:
+    return TrunkDims(
+        num_layers=cfg.num_hidden_layers,
+        hidden=cfg.hidden_size,
+        heads=cfg.num_attention_heads,
+        kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim,
+        intermediate=cfg.intermediate_size,
+        eps=cfg.rms_norm_eps,
+        qk_norm=True,
+    )
+
+
+def _project_input(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """small_to_mtp_projection (identity when dims match)."""
+    if "input_proj" in params:
+        return x @ params["input_proj"] + params["input_proj_b"]
+    return x
+
+
+def alloc_subtalker_cache(
+    cfg: CodePredictorConfig, batch: int, dtype=torch.float32, device=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-frame micro-decode KV cache [L, B, G, KV, hd]."""
+    shape = (cfg.num_hidden_layers, batch, cfg.num_code_groups,
+             cfg.num_key_value_heads, cfg.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def subtalker_generate(
+    params: dict,
+    cfg: CodePredictorConfig,
+    talker_codec_embedding: torch.Tensor,  # [V_talker, D_talker] (group-0 table)
+    prev_hidden: torch.Tensor,             # [B, D_talker] talker post-norm hidden
+    first_code: torch.Tensor,              # [B] codebook-0 token
+    sampling: SamplingConfig,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Run the micro-decode for one frame. Returns codes [B, G] int64
+    (column 0 = first_code)."""
+    g = cfg.num_code_groups
+    dims = subtalker_dims(cfg)
+    b = prev_hidden.shape[0]
+    dtype = params["norm"].dtype
+    device = prev_hidden.device
+
+    k_cache, v_cache = alloc_subtalker_cache(cfg, b, dtype, device)
+    cos_all, sin_all = rope_cos_sin(
+        torch.arange(g, device=device), cfg.head_dim, cfg.rope_theta)  # [G, hd]
+    # Row-wise lengths for every position: cur_len = pos + 1.
+    lengths = torch.arange(1, g + 1, dtype=torch.int32, device=device)[:, None].repeat(1, b)
+    valid_from = torch.zeros(b, dtype=torch.int32, device=device)
+
+    codes = [first_code]
+    for pos in range(g):
+        if pos == 0:
+            x = prev_hidden.to(dtype)
+        elif pos == 1:
+            x = talker_codec_embedding[codes[-1]]
+        else:
+            x = params["embeds"][pos - 2][codes[-1]]
+        x = _project_input(params, x)
+        cos = cos_all[pos].expand(b, cfg.head_dim)
+        sin = sin_all[pos].expand(b, cfg.head_dim)
+        hidden, k_cache, v_cache = trunk_decode_step(
+            params["trunk"], dims, x, cos, sin, k_cache, v_cache, lengths[pos],
+            valid_from=valid_from,
+        )
+        if pos == 0:
+            continue  # position 0 emits no token
+        hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
+        logits = (hidden @ params["lm_heads"][pos - 1]).float()
+        codes.append(sample_token(logits, sampling, generator))
+    return torch.stack(codes, dim=1)
+
+
+def embed_groups_sum(
+    params: dict,
+    talker_codec_embedding: torch.Tensor,  # [V_talker, D_talker]
+    codes: torch.Tensor,                   # [B, G]
+) -> torch.Tensor:
+    """Σ of all G group embeddings — the talker's next-frame audio-track
+    input. Group 0 uses the talker table; groups 1..G-1 the stacked
+    sub-talker tables (one batched gather)."""
+    g = codes.shape[1]
+    first = talker_codec_embedding[codes[:, 0]]                      # [B, D]
+    group_ids = torch.arange(g - 1, device=codes.device)
+    rest = params["embeds"][group_ids[:, None], codes[:, 1:].T]      # [G-1, B, D]
+    return first + rest.sum(dim=0)
