@@ -7,19 +7,30 @@ Phases, each of which exits non-zero on failure:
 
 1. device: needs CUDA; prints the card's name and power limit; TF32 off for
    matmuls and cuDNN (the f32 codec comparison needs full f32 convs);
-2. build: compiles the hand-written kernels from ``qwen_tts_tpu_torch/csrc``;
+2. build: compiles the hand-written kernels from ``qwen_tts_tpu_torch/csrc``,
+   one ``nvcc`` per source, all at once;
 3. kernels: each kernel against its plain PyTorch version at the main path's
-   shapes (both dtypes, ragged rows, with and without a window), then its
-   time beside the plain version, a library yardstick and the byte bound;
+   shapes (decode attention over float and int8 caches: both dtypes, ragged
+   rows, with and without a window; the sub-talker micro-step: B 1/4/32,
+   both dtypes, every position, the cache rows it wrote included), then its
+   time beside the plain version, a library yardstick where one exists and
+   the bound;
 4. path: writes a random-weight checkpoint at the flagship 12 Hz dims,
    loads it with ``Qwen3TTSModel.from_pretrained`` and runs
    ``generate_custom_voice`` for a batch of 4 (talker bf16, codec f32,
-   sampled, fixed length); the kernel's launch count must be exactly
+   sampled, fixed length); the decode-attention launch count must be exactly
    frames x (talker layers + groups x sub-talker layers);
 5. parity: the same checkpoint in f32 on the card and on the CPU must give
-   the same greedy codes.
+   the same greedy codes;
+6. serving: the same checkpoint and texts after
+   ``quantize_for_serving(talker=True, kv=True)``; the micro-step kernel must
+   launch exactly frames x groups times, the int8-cache attention frames x
+   talker layers times, the float-cache attention not at all;
+7. serving parity: phase 5 with int8 weights (``quantize_for_serving(
+   talker=True)``, codes equal), then with the int8 KV cache as well
+   (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``).
 
-The line before the last holds the kernels' JSON record; the last line is
+The line before the last holds the kernels' JSON records; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``qwen_tts_tpu``.
 """
 
@@ -33,6 +44,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 # Main-path run: 4 texts, EOS banned (min_new_tokens > max_new_tokens), so
@@ -48,8 +60,16 @@ TEXTS = [
 # Kernel tolerance: f32 differs in summation order only; bf16 output rounds
 # to 8 mantissa bits on values of magnitude ~1.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# The micro-step kernel against its plain version, relative to the largest
+# reference value. f32: summation order only, through 5 layers. bf16: both
+# round at the same points, but a sum in another order can move a value by
+# one bf16 ulp (2^-8 relative), and that carries on through later layers and
+# through the cache rows each side attends over.
+STEP_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # non-tensor-core f32, same source
+H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, same source
+KERNEL_SOURCES = ("decode_attention", "subtalker_step")
 
 
 def log(msg: str) -> None:
@@ -317,14 +337,33 @@ def phase_device():
 
 
 def phase_build():
+    """One nvcc per source, all started together; fails if any fails."""
     from qwen_tts_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
-    build.load_library("decode_attention")
-    log(f"build: decode_attention.cu in {time.perf_counter() - t0:.2f} s")
-    for line in build.build_logs.get("decode_attention", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    errors, seconds = {}, {}
+
+    def one(name):
+        start = time.perf_counter()
+        try:
+            build.load_library(name)
+        except Exception as e:  # reported below; the phase fails on any
+            errors[name] = e
+        seconds[name] = time.perf_counter() - start
+
+    threads = [threading.Thread(target=one, args=(n,)) for n in KERNEL_SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        fail(f"build: {errors}")
+    log(f"build: {', '.join(f'{n}.cu {seconds[n]:.2f} s' for n in KERNEL_SOURCES)}; "
+        f"wall {time.perf_counter() - t0:.2f} s")
+    for name in KERNEL_SOURCES:
+        for line in build.build_logs.get(name, "").splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {name}: {line.strip()}")
 
 
 def _time_ms(fn, iters=200, warmup=20):
@@ -351,7 +390,24 @@ def _attention_inputs(gen, b, h, kv, hd, s_max, cur_len, valid_from, dtype):
     return q, k, v, as_t(cur_len), as_t(valid_from)
 
 
+def _int8_caches(k, v):
+    """Float K/V [B, S, KV, hd] -> the int8 dict caches of the serving mode."""
+    from qwen_tts_tpu_torch.ops.attention import quantize_kv
+
+    return tuple(dict(zip(("i8", "s"), quantize_kv(t))) for t in (k, v))
+
+
 def phase_kernels(talker_s_max: int):
+    """Each kernel against its plain version, then timed at the path's
+    shapes. Returns the JSON records of the three kernels."""
+    bf16_rec, worst = phase_kernels_decode_attention(talker_s_max)
+    bf16_rec["max_abs_err"] = worst
+    int8_rec = phase_kernels_int8_attention(talker_s_max)
+    step_rec = phase_kernels_subtalker_step()
+    return [bf16_rec, int8_rec, step_rec]
+
+
+def phase_kernels_decode_attention(talker_s_max: int):
     """decode_attention against its plain version, then timed at the path's
     two shapes. Returns the JSON record (talker shape, B=4, bf16)."""
     import torch
@@ -419,19 +475,234 @@ def phase_kernels(talker_s_max: int):
     return records["talker"], worst
 
 
-def phase_path(model_dir: str, smi: str):
+def phase_kernels_int8_attention(s_max: int):
+    """decode_attention_int8 against its plain version at the talker shape
+    (the only path that runs it), then timed there."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention_int8, decode_attention_int8_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h, kv, hd = 16, 2, 64
+    worst = 0.0
+    for b in (1, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in (None, 13):
+                cur_len = [s_max - 3 * i for i in range(b)]
+                valid_from = [min(5 * i, cl - 1) for i, cl in enumerate(cur_len)]
+                q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len,
+                                                    valid_from, torch.float32)
+                kc, vc = _int8_caches(k, v)
+                q = q.to(dtype)
+                got = decode_attention_int8(q, kc, vc, cl, vf, window)
+                torch.cuda.synchronize()
+                want = decode_attention_int8_plain(q, kc, vc, cl, vf, window)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = KERNEL_TOL[str(dtype).split(".")[1]]
+                worst = max(worst, err)
+                log(f"kernel check: decode_attention_int8 talker B={b} H{h}/KV{kv} hd{hd} "
+                    f"S_max={s_max} {dtype} window={window}: max_abs_err={err:.3g} (tol {tol})")
+                if not err <= tol:
+                    fail(f"decode_attention_int8 disagrees with its plain version: {err}")
+
+    b = 4
+    cur_len, valid_from = [65] * b, [0, 5, 10, 20]
+    q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len, valid_from,
+                                        torch.float32)
+    kc, vc = _int8_caches(k, v)
+    q = q.to(torch.bfloat16)
+    kernel_ms = _time_ms(lambda: decode_attention_int8(q, kc, vc, cl, vf))
+    plain_ms = _time_ms(lambda: decode_attention_int8_plain(q, kc, vc, cl, vf))
+    n_valid = sum(c - f for c, f in zip(cur_len, valid_from))
+    # int8 K and V plus one f32 scale each per (token, head); q in, out back.
+    bytes_moved = n_valid * kv * 2 * (hd + 4) + 2 * b * h * hd * 2 + 8 * b
+    flops = 4 * n_valid * h * hd
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_F32_FLOPS * 1e3
+    rec = {
+        "name": "decode_attention_int8", "route": "cuda",
+        "source": "qwen_tts_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "qwen_tts_tpu/ops/pallas/decode_attention.py:74",
+        "shape": f"talker B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid} "
+                 f"bf16 q, int8 KV",
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "max_abs_err": worst,
+    }
+    log(f"kernel time: {json.dumps(rec)}")
+    return rec
+
+
+def random_subtalker_packed(gen, dtype):
+    """The micro-step kernel's operands for a random int8 trunk at the dims it
+    is built for: weights N(0, 1/fan_in), norms 1 + N(0, 0.1^2)."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import KERNEL_DIMS, pack_subtalker_weights
+
+    n_layers, d, h, kv, hd, inter = KERNEL_DIMS
+
+    def w(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda") / math.sqrt(shape[-2])
+
+    def norm(*shape):
+        return 1 + 0.1 * torch.randn(*shape, generator=gen, device="cuda")
+
+    trunk = {"wq": w(n_layers, d, h * hd), "wk": w(n_layers, d, kv * hd),
+             "wv": w(n_layers, d, kv * hd), "wo": w(n_layers, h * hd, d),
+             "gate": w(n_layers, d, inter), "up": w(n_layers, d, inter),
+             "down": w(n_layers, inter, d), "input_norm": norm(n_layers, d),
+             "post_attn_norm": norm(n_layers, d), "q_norm": norm(n_layers, hd),
+             "k_norm": norm(n_layers, hd)}
+    return pack_subtalker_weights(quantize_trunk_int8({k: v.to(dtype) for k, v in trunk.items()}))
+
+
+def phase_kernels_subtalker_step(groups: int = 16):
+    """subtalker_step against its plain version at the flagship sub-talker
+    dims: B 1/4/32, bf16/f32, every position of a frame, the hidden state
+    and the K/V rows each wrote. Then timed at B=4, bf16, mid-frame."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
+        KERNEL_DIMS, launch_shape, subtalker_step, subtalker_step_plain)
+    from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
+
+    n_layers, d, h, kv, hd, inter = KERNEL_DIMS
+    eps = 1e-6
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cos, sin = rope_cos_sin(torch.arange(groups, device="cuda"), hd, 10000.0)
+    worst = 0.0
+    packs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        packs[dtype] = packed = random_subtalker_packed(gen, dtype)
+        tol = STEP_TOL[str(dtype).split(".")[1]]
+        for b in (1, 4, 32):
+            grid, threads, smem = launch_shape(dtype, b)
+            shape = (n_layers, b, groups, kv, hd)
+            kc, vc = (torch.zeros(shape, dtype=dtype, device="cuda") for _ in range(2))
+            kc_p, vc_p = kc.clone(), vc.clone()
+            errs = []
+            before = subtalker_step.launches
+            for pos in range(groups):
+                x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+                got, _, _ = subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps)
+                torch.cuda.synchronize()
+                want, _, _ = subtalker_step_plain(packed, x, cos[pos], sin[pos], kc_p, vc_p,
+                                                  pos, eps)
+                for a, ref in ((got, want), (kc[:, :, pos], kc_p[:, :, pos]),
+                               (vc[:, :, pos], vc_p[:, :, pos])):
+                    err = (a.float() - ref.float()).abs().max().item()
+                    limit = tol * ref.float().abs().max().item()
+                    errs.append(err)
+                    if not err <= limit:
+                        fail(f"subtalker_step B={b} {dtype} pos={pos} disagrees with its plain "
+                             f"version: {err} > {limit}")
+            if subtalker_step.launches != before + groups:
+                fail("subtalker_step did not count its launches")
+            worst = max(worst, *errs)
+            log(f"kernel check: subtalker_step B={b} {dtype} positions 0..{groups - 1}: "
+                f"max_abs_err={max(errs):.3g} (tol {tol} x max|ref|); cooperative launch "
+                f"grid {grid} x {threads} threads, {smem} B dynamic shared")
+
+    b, dtype, pos = 4, torch.bfloat16, groups // 2
+    packed = packs[dtype]
+    kc, vc = (torch.randn(n_layers, b, groups, kv, hd, generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+    kernel_ms = _time_ms(lambda: subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps))
+    plain_ms = _time_ms(lambda: subtalker_step_plain(packed, x, cos[pos], sin[pos], kc, vc,
+                                                     pos, eps))
+    item = 2  # bf16
+    weights = sum(packed[k].numel() for k in ("wqkv", "wo", "wgu", "down"))
+    scales = 4 * sum(packed[k].numel() for k in ("qkv_s", "wo_s", "gu_s", "down_s"))
+    norms = item * sum(packed[k].numel()
+                       for k in ("input_norm", "post_attn_norm", "q_norm", "k_norm"))
+    cache_read = 2 * n_layers * b * pos * kv * hd * item   # rows 0..pos-1 of K and V
+    cache_write = 2 * n_layers * b * kv * hd * item        # row pos of K and V
+    bytes_moved = weights + scales + norms + 2 * b * d * item + 2 * hd * 4 + cache_read \
+        + cache_write
+    flops = 2 * weights * b + 4 * n_layers * b * h * (pos + 1) * hd
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_BF16_FLOPS * 1e3
+    rec = {
+        "name": "subtalker_step", "route": "cuda",
+        "source": "qwen_tts_tpu_torch/csrc/subtalker_step.cu",
+        "replaces": "scripts/exp_pallas_subtalker_step.py:299",
+        "shape": f"flagship sub-talker B={b} pos={pos} of {groups} bf16, "
+                 f"{weights / 1e6:.2f} M int8 weights",
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
+        "max_abs_err": worst,
+    }
+    log(f"kernel time: {json.dumps(rec)}")
+    return rec
+
+
+# TPU kernel still to port: scripts/exp_pallas_vocoder.py `fused_block`, its
+# `BLOCKS` (c_in, c_out, rate, T_in at 128 frames for batch 32), dilations
+# 1/3/9, bf16. Kept here as numbers: this script imports nothing of JAX.
+VOCODER_BLOCKS = {"b2": (384, 192, 4, 20480), "b3": (192, 96, 3, 81920)}
+VOCODER_BATCH = 32
+
+
+def vocoder_block_bounds():
+    """The least time the card could take for one fused vocoder block (TPU
+    kernel #3, not ported yet): bf16 input read once and output written once
+    (plus weights), against the transposed conv (2 taps of c_in x c_out per
+    output row) and the 3 residual units (k=3 and k=1 convs, c_out x c_out)
+    at the bf16 tensor-core rate. The SnakeBeta polynomials run beside them
+    on the CUDA cores and are not counted."""
+    out = {}
+    for name, (c_in, c_out, rate, t_in) in VOCODER_BLOCKS.items():
+        t_out = t_in * rate
+        weights = 2 * (2 * rate * c_in * c_out + 3 * (3 + 1) * c_out * c_out)
+        moved = 2 * VOCODER_BATCH * (t_in * c_in + t_out * c_out) + weights
+        flops = 2 * VOCODER_BATCH * t_out * (2 * c_in * c_out + 3 * (3 + 1) * c_out * c_out)
+        bytes_ms = moved / H100_BYTES_PER_S * 1e3
+        flops_ms = flops / H100_BF16_FLOPS * 1e3
+        out[name] = {"bytes": moved, "flops": flops, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
+                     "bound_ms": max(bytes_ms, flops_ms),
+                     "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
+        log(f"kernel still to port: fused vocoder block {name} B={VOCODER_BATCH} "
+            f"T_in={t_in}: {moved / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP -> bound "
+            f"{out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']})")
+    return out
+
+
+def _counters():
+    """The launch counters of the three kernel wrappers."""
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_int8)
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
+
+    return {"decode_attention": decode_attention, "decode_attention_int8": decode_attention_int8,
+            "subtalker_step": subtalker_step}
+
+
+def phase_path(model_dir: str, smi: str, serving: bool = False):
+    """``generate_custom_voice`` at the flagship dims, bf16 talker (phase 4)
+    or, with ``serving``, after ``quantize_for_serving(talker=True, kv=True)``
+    (phase 6). Returns each kernel's launches in the timed run."""
     import numpy as np
     import torch
 
-    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
     from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
 
+    name = "serving" if serving else "path"
     t0 = time.perf_counter()
     model = Qwen3TTSModel.from_pretrained(model_dir)
-    log(f"path: from_pretrained (bf16 talker, f32 codec) on {model.device} in "
-        f"{time.perf_counter() - t0:.1f} s; tokenizer loaded: {model.tokenizer is not None}")
+    if serving:
+        model.quantize_for_serving(talker=True, kv=True)
+    log(f"{name}: from_pretrained (bf16 talker, f32 codec){' + int8 serving mode' * serving} "
+        f"on {model.device} in {time.perf_counter() - t0:.1f} s; tokenizer loaded: "
+        f"{model.tokenizer is not None}")
     model.tokenizer = ChatTemplateTokenizer()
     tk = model.cfg.talker
+    g, talker_layers = tk.num_code_groups, tk.num_hidden_layers
     kw = dict(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1, seed=0)
     speakers = ["aiden", "serena", "aiden", "serena"]
     languages = ["english", "auto", "chinese", "english"]
@@ -439,25 +710,34 @@ def phase_path(model_dir: str, smi: str):
     model.generate_custom_voice(TEXTS, speakers, languages, max_new_tokens=3)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    decode_attention.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
     wavs, sr = model.generate_custom_voice(TEXTS, speakers, languages, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = decode_attention.launches
-    per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
-    expected = MAX_NEW * per_frame
-    log(f"path: decode_attention launches {launches}, expected {MAX_NEW} frames x "
-        f"{per_frame} = {expected}")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    if serving:
+        expected = {"decode_attention": 0, "decode_attention_int8": MAX_NEW * talker_layers,
+                    "subtalker_step": MAX_NEW * g}
+        how = (f"int8 attention {MAX_NEW} frames x {talker_layers} talker layers, "
+               f"micro-step {MAX_NEW} frames x {g} groups, float attention 0")
+    else:
+        per_frame = talker_layers + g * tk.code_predictor.num_hidden_layers
+        expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
+                    "subtalker_step": 0}
+        how = f"decode_attention {MAX_NEW} frames x {per_frame}, the others 0"
+    log(f"{name}: launches {launches}, expected {expected} ({how})")
     if launches != expected:
-        fail("the main path did not launch the decode-attention kernel as expected")
+        fail(f"the {name} phase did not launch the kernels as expected")
     want_len = FRAMES * model.cfg.codec.decode_upsample_rate
     for i, w in enumerate(wavs):
         if w.shape != (want_len,) or not np.isfinite(w).all() or np.abs(w).max() > 1:
             fail(f"waveform {i}: shape {w.shape}, finite {np.isfinite(w).all()}, "
                  f"max |x| {np.abs(w).max()}")
     audio_s = len(wavs) * want_len / sr
-    log(f"path: generate_custom_voice B={len(wavs)} frames={FRAMES} ({MAX_NEW} decode "
+    log(f"{name}: generate_custom_voice B={len(wavs)} frames={FRAMES} ({MAX_NEW} decode "
         f"steps) wall {wall:.3f} s, {wall / MAX_NEW * 1e3:.2f} ms/step, "
         f"audio {audio_s:.2f} s, RTF(audio/wall) {audio_s / wall:.3f}, "
         f"peak mem {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
@@ -477,15 +757,15 @@ def phase_path(model_dir: str, smi: str):
     t0 = time.perf_counter()
     model.decode_codes(codes)
     t_codec = time.perf_counter() - t0
-    log(f"path split: decode loop {t_codes:.3f} s ({t_codes / MAX_NEW * 1e3:.2f} ms/step), "
+    log(f"{name} split: decode loop {t_codes:.3f} s ({t_codes / MAX_NEW * 1e3:.2f} ms/step), "
         f"codec {t_codec:.3f} s | {smi}")
-    profile_decode(model, prompts, dict(kw, max_new_tokens=9, min_new_tokens=10), smi)
+    profile_decode(model, prompts, dict(kw, max_new_tokens=9, min_new_tokens=10), smi, name)
     del model
     torch.cuda.empty_cache()
     return launches
 
 
-def profile_decode(model, prompts, kw, smi: str) -> None:
+def profile_decode(model, prompts, kw, smi: str, name: str) -> None:
     """Where the decode loop's time goes: torch.profiler over a short run;
     device busy time by kernel against the host's wall time."""
     import torch
@@ -505,67 +785,151 @@ def profile_decode(model, prompts, kw, smi: str) -> None:
     launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
     steps = kw["max_new_tokens"]
     if busy_ms == 0:
-        log("profile: the profiler saw no device time (not measured)")
+        log(f"{name} profile: the profiler saw no device time (not measured)")
         return
-    log(f"profile: decode loop {steps} steps B={len(prompts)}: wall {wall_ms:.1f} ms "
+    log(f"{name} profile: decode loop {steps} steps B={len(prompts)}: wall {wall_ms:.1f} ms "
         f"(profiler on), device busy {busy_ms:.1f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}, {launches / steps:.0f} kernel launches/step | {smi}")
     for e in device[:12]:
-        log(f"  profile kernel: {e.self_device_time_total / 1e3:8.2f} ms "
+        log(f"  {name} profile kernel: {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
 
-def phase_parity(model_dir: str):
+def _greedy_codes(model, device, texts, speakers, kw, forced=None):
+    """f32 greedy codes [rows, frames, groups], every sampling call's logits
+    (on the CPU) and token, and the talker KV caches as the run left them.
+    With ``forced``, another run's tokens are taken at each call instead of
+    this run's own (teacher forcing), so both runs see the same contexts."""
     import numpy as np
-    import torch
 
     from qwen_tts_tpu_torch import generate as gen_mod
     from qwen_tts_tpu_torch.models import subtalker as st_mod
+
+    calls, caches = [], []
+    originals = (gen_mod.sample_token, st_mod.sample_token, gen_mod.talker_mod.alloc_kv_cache)
+
+    def recording(logits, cfg, generator, _orig=originals[0]):
+        token = _orig(logits, cfg, generator)
+        calls.append((logits.float().cpu(), token.cpu()))
+        if forced is not None:
+            token = forced[len(calls) - 1][1].to(token.device)
+        return token
+
+    def keeping(*args, _orig=originals[2], **kwargs):
+        caches.append(_orig(*args, **kwargs))
+        return caches[-1]
+
+    gen_mod.sample_token = st_mod.sample_token = recording
+    gen_mod.talker_mod.alloc_kv_cache = keeping
+    try:
+        t0 = time.perf_counter()
+        prompts = [gen_mod.build_prompt(
+            model.talker_params, model.cfg,
+            model._tokenize(model.build_assistant_text(t)), speaker=s)
+            for t, s in zip(texts, speakers)]
+        codes, _ = model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
+    finally:
+        gen_mod.sample_token, st_mod.sample_token, gen_mod.talker_mod.alloc_kv_cache = originals
+    codes = np.stack(codes)
+    log(f"parity: f32 greedy on {device}{' (teacher-forced)' * (forced is not None)}: "
+        f"codes {codes.shape} in {time.perf_counter() - t0:.1f} s")
+    return codes, calls, caches[-1]
+
+
+def _min_margin(calls):
+    import torch
+
+    return min((torch.topk(lg, 2, dim=-1).values.diff(dim=-1).abs().min().item()
+                for lg, _ in calls), default=float("inf"))
+
+
+# Parity with the int8 KV cache. The talker quantizes every K/V row as it
+# writes it, so where card and CPU differ by an f32 ulp (their sums run in
+# another order) a value can sit on a rounding boundary and its int8 entry
+# move by one step, 1/127 of its row's largest value; what follows moves with
+# it. Codes are then compared teacher-forced (the CPU follows the card's
+# tokens): int8 entries may differ by one step and no more, the logits of
+# every call must agree within one such step of the largest logit, and every
+# card token must be the CPU's argmax unless the CPU's top two logits lie
+# within that.
+KV_INT8_LOGIT_RTOL = 1 / 127
+
+
+def phase_parity(model_dir: str, mode: str = "float"):
+    """Greedy codes in f32 on the card and on the CPU. ``mode`` "float"
+    (phase 5) and "int8" (phase 7, ``quantize_for_serving(talker=True)``):
+    the free-running codes must be equal. "int8+kv" (phase 7,
+    ``quantize_for_serving(talker=True, kv=True)``): compared teacher-forced,
+    as ``KV_INT8_LOGIT_RTOL`` says. Every mode logs how far the logits of a
+    teacher-forced CPU run lie from the card's."""
+    import numpy as np
+    import torch
+
     from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
 
     kw = dict(do_sample=False, subtalker_dosample=False, repetition_penalty=1.0,
               max_new_tokens=9, min_new_tokens=10)
     texts, speakers = TEXTS[:2], ["aiden", "serena"]
-    results = {}
-    margins = {}
+    name = f"parity [{mode}]"
+    models = {}
     for device in ("cuda", "cpu"):
         model = Qwen3TTSModel.from_pretrained(model_dir, talker_dtype=torch.float32,
                                               device=device, load_tokenizer=False)
+        if mode != "float":
+            model.quantize_for_serving(talker=True, kv=mode == "int8+kv")
         model.tokenizer = ChatTemplateTokenizer()
-        recorded = []
-        originals = (gen_mod.sample_token, st_mod.sample_token)
-
-        def recording(logits, cfg, generator, _orig=originals[0]):
-            top2 = torch.topk(logits, 2, dim=-1).values
-            recorded.append((top2[:, 0] - top2[:, 1]).min().item())
-            return _orig(logits, cfg, generator)
-
-        gen_mod.sample_token = st_mod.sample_token = recording
-        try:
-            t0 = time.perf_counter()
-            prompts = [gen_mod.build_prompt(
-                model.talker_params, model.cfg,
-                model._tokenize(model.build_assistant_text(t)), speaker=s)
-                for t, s in zip(texts, speakers)]
-            codes, info = model.generate_codes_from_prompts(
-                prompts, model._merge_params(**kw))
-        finally:
-            gen_mod.sample_token, st_mod.sample_token = originals
-        results[device] = np.stack(codes)
-        margins[device] = recorded
-        log(f"parity: f32 greedy on {device}: codes {results[device].shape} in "
-            f"{time.perf_counter() - t0:.1f} s")
-        del model
-    a, b = results["cuda"], results["cpu"]
+        models[device] = model
+    a, card_calls, card_cache = _greedy_codes(models["cuda"], "cuda", texts, speakers, kw)
+    b, cpu_calls, _ = _greedy_codes(models["cpu"], "cpu", texts, speakers, kw)
+    _, forced_calls, cpu_cache = _greedy_codes(models["cpu"], "cpu", texts, speakers, kw,
+                                               forced=card_calls)
     if a.shape != (2, 8, 16):
-        fail(f"parity: unexpected code shape {a.shape}")
-    if a.shape != b.shape or not (a == b).all():
-        diff = np.argwhere(a != b)
-        fail(f"parity: card and CPU greedy codes differ at (row, frame, group) "
-             f"{diff[:5].tolist()}; smallest top-1/top-2 logit margin "
-             f"{min(margins['cuda']):.3g} (card), {min(margins['cpu']):.3g} (CPU)")
-    log(f"parity: card == CPU greedy codes for {a.shape[0]} rows x {a.shape[1]} frames x "
-        f"{a.shape[2]} groups; smallest logit margin {min(margins['cuda']):.3g}")
+        fail(f"{name}: unexpected code shape {a.shape}")
+    if len(forced_calls) != len(card_calls):
+        fail(f"{name}: {len(card_calls)} sampling calls on the card, {len(forced_calls)} on "
+             f"the CPU")
+    equal = a.shape == b.shape and bool((a == b).all())
+    worst, scale = 0.0, 0.0
+    for (lg_card, _), (lg_cpu, _) in zip(card_calls, forced_calls):
+        live = lg_cpu > -1e8  # suppressed entries hold the same fill on both
+        worst = max(worst, (lg_card - lg_cpu)[live].abs().max().item())
+        scale = max(scale, lg_cpu[live].abs().max().item())
+    log(f"{name}: free-running codes "
+        f"{'equal' if equal else f'first differ at {np.argwhere(a != b)[:1].tolist()}'} for "
+        f"{a.shape[0]} rows x {a.shape[1]} frames x {a.shape[2]} groups; smallest top-1/top-2 "
+        f"logit margin {_min_margin(card_calls):.3g} (card), {_min_margin(cpu_calls):.3g} "
+        f"(CPU); teacher-forced over {len(card_calls)} sampling calls: max |logit card - CPU| "
+        f"{worst:.3g}, largest |logit| {scale:.3g}")
+    if mode != "int8+kv":
+        if not equal:
+            fail(f"{name}: card and CPU greedy codes differ at (row, frame, group) "
+                 f"{np.argwhere(a != b)[:5].tolist()}")
+        return
+
+    flips, entries, step = 0, 0, 0
+    for kc_card, kc_cpu in zip(card_cache, cpu_cache):  # K, then V
+        delta = (kc_card["i8"].cpu().int() - kc_cpu["i8"].int()).abs()
+        flips += int((delta > 0).sum())
+        entries += delta.numel()
+        step = max(step, int(delta.max()))
+    tol = KV_INT8_LOGIT_RTOL * scale
+    ties, mismatched = 0, []
+    for i, ((_, tok), (lg_cpu, _)) in enumerate(zip(card_calls, forced_calls)):
+        top2 = torch.topk(lg_cpu, 2, dim=-1)
+        for row in range(lg_cpu.shape[0]):
+            if tok[row] == top2.indices[row, 0]:
+                continue
+            if top2.values[row, 0] - top2.values[row, 1] <= tol:
+                ties += 1
+            else:
+                mismatched.append((i, row))
+    log(f"{name}: teacher-forced: talker int8 KV entries that differ {flips} of {entries} "
+        f"(largest step {step}); max |logit card - CPU| {worst:.3g} (tol {tol:.3g} = "
+        f"largest |logit| / 127); card token != CPU argmax at {ties} near-tie(s) and "
+        f"{len(mismatched)} other position(s)")
+    if mismatched or step > 1 or not worst <= tol:
+        fail(f"{name}: card and CPU disagree: calls/rows {mismatched[:5]}, int8 KV step "
+             f"{step}, max logit diff {worst:.3g}")
 
 
 def main() -> int:
@@ -574,7 +938,8 @@ def main() -> int:
 
     phase_build()
     prefill_bucket = 32
-    kernel_rec, worst = phase_kernels(prefill_bucket + MAX_NEW)
+    records = phase_kernels(prefill_bucket + MAX_NEW)
+    vocoder_block_bounds()
     model_dir = tempfile.mkdtemp(prefix="qtts_smoke_")
     try:
         cfg = flagship_config()
@@ -584,12 +949,18 @@ def main() -> int:
                    for r, _, fs in os.walk(model_dir) for f in fs)
         log(f"checkpoint: random weights at flagship dims, {size / 2**30:.2f} GiB, "
             f"written in {time.perf_counter() - t0:.1f} s")
-        launches = phase_path(model_dir, smi)
+        path = phase_path(model_dir, smi)
         phase_parity(model_dir)
+        serving = phase_path(model_dir, smi, serving=True)
+        phase_parity(model_dir, "int8")
+        phase_parity(model_dir, "int8+kv")
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
-    kernel_rec.update(launches=launches, max_abs_err=worst)
-    print(json.dumps({"kernels": [kernel_rec]}))
+    # Each kernel's launches come from the run of the path that uses it.
+    records[0]["launches"] = path["decode_attention"]
+    records[1]["launches"] = serving["decode_attention_int8"]
+    records[2]["launches"] = serving["subtalker_step"]
+    print(json.dumps({"kernels": records}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

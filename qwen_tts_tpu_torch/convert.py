@@ -5,6 +5,11 @@ parameter trees with numpy arrays as leaves (the caller applies ``np.asarray``
 on the JAX side, so this module needs neither jax nor ``ml_dtypes``) and
 returns the port's trees: the same keys, nesting and layouts, as tensors on
 one device. Both packages then compute the same thing.
+
+Only floating weights take the requested dtype. Integer leaves (int8 weights
+and tables of a quantized tree) keep their own dtype, and so do scales: the
+``*_s`` weight scales, stored bf16 by ``quantize_trunk_int8`` whatever the
+model dtype, and the f32 ``s`` of an int8 KV cache dict.
 """
 
 from __future__ import annotations
@@ -17,22 +22,32 @@ import torch
 from qwen_tts_tpu_torch.utils import Device, resolve_device
 
 
-def _tensor(a: np.ndarray, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+def _is_scale(key: Optional[str]) -> bool:
+    return key is not None and (key == "s" or key.endswith("_s"))
+
+
+def _tensor(a: np.ndarray, device: torch.device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    """numpy → tensor on ``device``; cast to ``dtype`` unless it is None."""
     a = np.array(a, order="C")  # an owned, writable copy
     if a.dtype.name == "bfloat16":  # ml_dtypes' bf16: same bits as torch's
         t = torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     else:
         t = torch.from_numpy(a)
-    return t.to(device=device, dtype=dtype)
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
 
 
-def convert_tree(tree: Any, device: torch.device, dtype: torch.dtype) -> Any:
-    """Map every array leaf of nested dicts/lists to a tensor."""
+def convert_tree(tree: Any, device: torch.device, dtype: torch.dtype,
+                 key: Optional[str] = None) -> Any:
+    """Map every array leaf of nested dicts/lists to a tensor: floating
+    weights in ``dtype``, integer leaves and scales in their own dtype."""
     if isinstance(tree, dict):
-        return {k: convert_tree(v, device, dtype) for k, v in tree.items()}
+        return {k: convert_tree(v, device, dtype, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(convert_tree(v, device, dtype) for v in tree)
-    return _tensor(np.asarray(tree), device, dtype)
+        return type(tree)(convert_tree(v, device, dtype, key) for v in tree)
+    a = np.asarray(tree)
+    floating = a.dtype.kind == "f" or a.dtype.name == "bfloat16"
+    keep = not floating or _is_scale(key)
+    return _tensor(a, device, None if keep else dtype)
 
 
 def convert_params(

@@ -6,11 +6,19 @@
 // restricted to positions [valid_from, cur_len) and to an optional sliding
 // window (pos >= cur_len - window).
 //
+// Two cache types, one template: the activation dtype T (f32 / bf16), or the
+// int8 dict cache of the serving mode (qwen_tts_tpu/ops/attention.py:93-157):
+// int8 K/V [B, S_max, KV, hd] with one f32 scale per token and head
+// [B, S_max, KV]. The scales fold into the dots: the score is
+// (q . k_i8) * scale * k_s, and the output sums (p_j * v_s_j) * v_i8_j, all in
+// f32; no dequantized copy of the cache is made.
+//
 // Bound: bytes. The work is 4 flops per cached element read, far below the
 // card's ~20 flops/byte f32 ridge, so the least time is
-// B * n_valid * KV * hd * 2 * sizeof(T) over 3.35 TB/s. At the main path's
-// caches (talker ~100 positions, sub-talker <= 16) that is well under a
-// microsecond, so launch latency bounds it in practice.
+// B * n_valid * KV * (hd * 2 * sizeof(cache element) + scales) over
+// 3.35 TB/s. At the main path's caches (talker ~100 positions, sub-talker
+// <= 16) that is well under a microsecond, so launch latency bounds it in
+// practice.
 //
 // Design, where the Pallas kernel stages the whole cache and masks it:
 //   * one block per (batch row, KV head); the G = H / KV queries of that head
@@ -34,6 +42,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kWarps = 4;
@@ -41,6 +51,7 @@ constexpr float kMaskedScore = -1e9f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
@@ -59,15 +70,20 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int HD, int G>
+// C is the cache element: T, or int8_t with per-(token, head) f32 scales
+// k_scale / v_scale [B, S_max, KV] (unused, null, for a float cache).
+template <typename T, typename C, int HD, int G>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attention_kernel(const T* __restrict__ q,          // [B, KV*G, HD]
-                        const T* __restrict__ k_cache,    // [B, S_max, KV, HD]
-                        const T* __restrict__ v_cache,    // [B, S_max, KV, HD]
+                        const C* __restrict__ k_cache,    // [B, S_max, KV, HD]
+                        const C* __restrict__ v_cache,    // [B, S_max, KV, HD]
+                        const float* __restrict__ k_scale,  // [B, S_max, KV] (int8)
+                        const float* __restrict__ v_scale,
                         const int32_t* __restrict__ cur_len,     // [B]
                         const int32_t* __restrict__ valid_from,  // [B]
                         T* __restrict__ out,              // [B, KV*G, HD]
                         int s_max, int kv_heads, int window, float scale) {
+  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   constexpr int kPerLane = HD / 32;
   const int b = blockIdx.x;
   const int kvh = blockIdx.y;
@@ -105,25 +121,32 @@ decode_attention_kernel(const T* __restrict__ q,          // [B, KV*G, HD]
   }
 
   for (int j = lo + warp; j < hi; j += kWarps) {
-    const size_t row = (((size_t)b * s_max + j) * kv_heads + kvh) * HD;
+    const size_t token = ((size_t)b * s_max + j) * kv_heads + kvh;
+    const size_t row = token * HD;
     float kr[kPerLane], vr[kPerLane];
 #pragma unroll
     for (int e = 0; e < kPerLane; ++e) {
       kr[e] = to_float(k_cache[row + e * 32 + lane]);
       vr[e] = to_float(v_cache[row + e * 32 + lane]);
     }
+    float k_s = 1.f, v_s = 1.f;
+    if constexpr (kInt8) {
+      k_s = k_scale[token];
+      v_s = v_scale[token];
+    }
 #pragma unroll
     for (int g = 0; g < G; ++g) {
       float s = 0.f;
 #pragma unroll
       for (int e = 0; e < kPerLane; ++e) s += qr[g][e] * kr[e];
-      s = empty ? kMaskedScore : warp_sum(s) * scale;
+      s = empty ? kMaskedScore : warp_sum(s) * scale * k_s;
       const float m_new = fmaxf(m[g], s);
       const float correction = expf(m[g] - m_new);
       const float p = expf(s - m_new);
+      const float pv = p * v_s;
       l[g] = l[g] * correction + p;
 #pragma unroll
-      for (int e = 0; e < kPerLane; ++e) acc[g][e] = acc[g][e] * correction + p * vr[e];
+      for (int e = 0; e < kPerLane; ++e) acc[g][e] = acc[g][e] * correction + pv * vr[e];
       m[g] = m_new;
     }
   }
@@ -159,61 +182,92 @@ decode_attention_kernel(const T* __restrict__ q,          // [B, KV*G, HD]
   }
 }
 
-template <typename T, int HD, int G>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* cur_len,
-                   const void* valid_from, void* out, int batch, int kv_heads, int s_max,
-                   int window, float scale, cudaStream_t stream) {
-  dim3 grid(batch, kv_heads);
-  decode_attention_kernel<T, HD, G><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int32_t*>(cur_len), static_cast<const int32_t*>(valid_from),
-      static_cast<T*>(out), s_max, kv_heads, window, scale);
+// Pointers of one call, passed down the dispatch.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const float* k_scale;
+  const float* v_scale;
+  const int32_t* cur_len;
+  const int32_t* valid_from;
+  void* out;
+  int batch, kv_heads, s_max, window;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, typename C, int HD, int G>
+cudaError_t launch(const Args& a) {
+  dim3 grid(a.batch, a.kv_heads);
+  decode_attention_kernel<T, C, HD, G><<<grid, kWarps * 32, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const C*>(a.k), static_cast<const C*>(a.v),
+      a.k_scale, a.v_scale, a.cur_len, a.valid_from, static_cast<T*>(a.out), a.s_max,
+      a.kv_heads, a.window, a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t dispatch_groups(int groups, const void* q, const void* k, const void* v,
-                            const void* cur_len, const void* valid_from, void* out, int batch,
-                            int kv_heads, int s_max, int window, float scale,
-                            cudaStream_t stream) {
+template <typename T, typename C, int HD>
+cudaError_t dispatch_groups(int groups, const Args& a) {
   switch (groups) {
-    case 1: return launch<T, HD, 1>(q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
-    case 2: return launch<T, HD, 2>(q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
-    case 4: return launch<T, HD, 4>(q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
-    case 8: return launch<T, HD, 8>(q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
-    case 16: return launch<T, HD, 16>(q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
+    case 1: return launch<T, C, HD, 1>(a);
+    case 2: return launch<T, C, HD, 2>(a);
+    case 4: return launch<T, C, HD, 4>(a);
+    case 8: return launch<T, C, HD, 8>(a);
+    case 16: return launch<T, C, HD, 16>(a);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t dispatch_head_dim(int head_dim, int groups, const void* q, const void* k,
-                              const void* v, const void* cur_len, const void* valid_from,
-                              void* out, int batch, int kv_heads, int s_max, int window,
-                              float scale, cudaStream_t stream) {
+template <typename T, typename C>
+cudaError_t dispatch_head_dim(int head_dim, int groups, const Args& a) {
   switch (head_dim) {
-    case 64: return dispatch_groups<T, 64>(groups, q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
-    case 128: return dispatch_groups<T, 128>(groups, q, k, v, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, stream);
+    case 64: return dispatch_groups<T, C, 64>(groups, a);
+    case 128: return dispatch_groups<T, C, 128>(groups, a);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// int8_cache selects the int8 dict cache (C = int8_t) over a cache in T.
+int dispatch(int dtype, bool int8_cache, int heads, int head_dim, const Args& a) {
+  if (a.batch <= 0 || a.kv_heads <= 0 || a.s_max <= 0 || heads % a.kv_heads != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int groups = heads / a.kv_heads;
+  switch (dtype * 2 + (int8_cache ? 1 : 0)) {
+    case 0: return (int)dispatch_head_dim<float, float>(head_dim, groups, a);
+    case 1: return (int)dispatch_head_dim<float, int8_t>(head_dim, groups, a);
+    case 2: return (int)dispatch_head_dim<__nv_bfloat16, __nv_bfloat16>(head_dim, groups, a);
+    case 3: return (int)dispatch_head_dim<__nv_bfloat16, int8_t>(head_dim, groups, a);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t code (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (q, out and the cache). Returns a
+// cudaError_t code (0 = success).
 extern "C" int qtts_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* cur_len, const void* valid_from, void* out,
                                      int dtype, int batch, int heads, int kv_heads,
                                      int head_dim, int s_max, int window, float scale,
                                      void* stream) {
-  if (batch <= 0 || kv_heads <= 0 || s_max <= 0 || heads % kv_heads != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int groups = heads / kv_heads;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return (int)dispatch_head_dim<float>(head_dim, groups, q, k_cache, v_cache, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, s);
-    case 1: return (int)dispatch_head_dim<__nv_bfloat16>(head_dim, groups, q, k_cache, v_cache, cur_len, valid_from, out, batch, kv_heads, s_max, window, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Args a{q, k_cache, v_cache, nullptr, nullptr,
+               static_cast<const int32_t*>(cur_len), static_cast<const int32_t*>(valid_from),
+               out, batch, kv_heads, s_max, window, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, false, heads, head_dim, a);
+}
+
+// The int8 dict cache: k_i8 / v_i8 int8 [B, S_max, KV, hd], k_s / v_s f32
+// [B, S_max, KV]; dtype is that of q and out.
+extern "C" int qtts_decode_attention_int8(const void* q, const void* k_i8, const void* k_s,
+                                          const void* v_i8, const void* v_s,
+                                          const void* cur_len, const void* valid_from,
+                                          void* out, int dtype, int batch, int heads,
+                                          int kv_heads, int head_dim, int s_max, int window,
+                                          float scale, void* stream) {
+  const Args a{q, k_i8, v_i8, static_cast<const float*>(k_s), static_cast<const float*>(v_s),
+               static_cast<const int32_t*>(cur_len), static_cast<const int32_t*>(valid_from),
+               out, batch, kv_heads, s_max, window, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, true, heads, head_dim, a);
 }

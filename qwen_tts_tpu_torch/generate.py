@@ -20,6 +20,7 @@ import torch
 from qwen_tts_tpu_torch.config import TalkerConfig, TTSConfig
 from qwen_tts_tpu_torch.models import subtalker as st_mod
 from qwen_tts_tpu_torch.models import talker as talker_mod
+from qwen_tts_tpu_torch.ops.attention import KVCache
 from qwen_tts_tpu_torch.ops.sampling import (
     NEG_INF,
     SamplingConfig,
@@ -228,8 +229,8 @@ class DecodeState:
 
     token: torch.Tensor       # [B] current codebook-0 token
     hidden: torch.Tensor      # [B, D] talker post-norm hidden
-    k_cache: torch.Tensor     # [L, B, S_max, KV, hd]
-    v_cache: torch.Tensor
+    k_cache: KVCache          # [L, B, S_max, KV, hd] (tensor or int8 dict)
+    v_cache: KVCache
     presence: torch.Tensor    # [B, V] repetition-penalty history
     eos: torch.Tensor         # [B] bool
     num_gen: torch.Tensor     # [B] int32 per-row frames generated
@@ -267,12 +268,14 @@ def init_decode(
     sampling: SamplingConfig,
     max_cache_len: int,
     generator: Optional[torch.Generator],
+    kv_int8: bool = False,
 ) -> DecodeState:
-    """Prefill + first-token sample; returns the decode state."""
+    """Prefill + first-token sample; returns the decode state. ``kv_int8``
+    keeps the talker KV cache as int8 dicts."""
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     k_cache, v_cache = talker_mod.alloc_kv_cache(
-        talker_cfg, b, max_cache_len, talker_params["norm"].dtype, device)
+        talker_cfg, b, max_cache_len, talker_params["norm"].dtype, device, kv_int8=kv_int8)
     pre = talker_mod.talker_prefill(
         talker_params, talker_cfg, inputs_embeds, pad_mask, k_cache, v_cache)
     n_real = pad_mask.int().sum(dim=-1, dtype=torch.int32)
@@ -370,6 +373,7 @@ def generate_codes(
     generator: Optional[torch.Generator],
     trim_last_on_budget: bool = True,
     step_limit: Optional[Union[int, Sequence[int]]] = None,
+    kv_int8: bool = False,
 ) -> GenOutput:
     """Prefill + the full AR loop.
 
@@ -378,7 +382,8 @@ def generate_codes(
     expands a step's code groups only at the next talker forward.
 
     ``step_limit`` (int or per-row, <= max_new_tokens) caps each row's
-    frames below ``max_new_tokens``."""
+    frames below ``max_new_tokens``. ``kv_int8`` keeps the talker KV cache
+    as int8 dicts."""
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     limit = torch.as_tensor(
@@ -386,7 +391,7 @@ def generate_codes(
         dtype=torch.int32, device=device).expand(b)
     state = init_decode(
         talker_params, talker_cfg, inputs_embeds, pad_mask, sampling=sampling,
-        max_cache_len=s + max_new_tokens, generator=generator)
+        max_cache_len=s + max_new_tokens, generator=generator, kv_int8=kv_int8)
     body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
                        trailing, limit, generator)
     state, codes = _segment_loop(body, state, max_new_tokens, limit,

@@ -13,6 +13,12 @@ Inputs pass through ``small_to_mtp_projection`` when the dims differ. The
 group tables and heads are stacked ``[G-1, V, D]`` / ``[G-1, D, V]``. Each
 micro-step runs the 5-layer trunk's decode step over a ``[L, B, G, KV, hd]``
 cache, so the decode-attention kernel launches ``G × L`` times per frame.
+
+The serving mode (``Qwen3TTSModel.quantize_for_serving``) stores the trunk,
+tables and heads int8 with per-channel bf16 scales and adds the trunk packed
+for ``subtalker_step`` (``params["trunk_packed"]``); each micro-step then
+runs the whole trunk as one ``subtalker_step``: one kernel launch per
+micro-step on the card, its plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -22,7 +28,8 @@ from typing import Optional, Tuple
 import torch
 
 from qwen_tts_tpu_torch.config import CodePredictorConfig
-from qwen_tts_tpu_torch.models.trunk import TrunkDims, trunk_decode_step
+from qwen_tts_tpu_torch.models.trunk import TrunkDims, quantize_int8, trunk_decode_step
+from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 from qwen_tts_tpu_torch.ops.sampling import SamplingConfig, sample_token
@@ -46,6 +53,33 @@ def _project_input(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "input_proj" in params:
         return x @ params["input_proj"] + params["input_proj_b"]
     return x
+
+
+def quantize_subtalker_tables_int8(params: dict) -> dict:
+    """int8 for the stacked embedding tables [G-1, V, D] and LM heads
+    [G-1, D, V], with per-channel symmetric scales along the non-indexed
+    axis, stored bf16 (``embeds_i8`` / ``embeds_s`` [G-1, 1, D], ``lm_heads_i8``
+    / ``lm_heads_s`` [G-1, 1, V]). Idempotent."""
+    out = dict(params)
+    for k in ("embeds", "lm_heads"):
+        if k in params:  # absent once quantized
+            out[k + "_i8"], out[k + "_s"] = quantize_int8(out.pop(k))
+    return out
+
+
+def _embed_table(params: dict, table: int, code: torch.Tensor, dtype) -> torch.Tensor:
+    """Row ``code`` of group table ``table`` (int8-aware)."""
+    if "embeds_i8" in params:
+        return params["embeds_i8"][table][code].to(dtype) * params["embeds_s"][table].to(dtype)
+    return params["embeds"][table][code]
+
+
+def _lm_head_logits(params: dict, hidden: torch.Tensor, head: int) -> torch.Tensor:
+    """f32 logits of LM head ``head`` (int8-aware)."""
+    if "lm_heads_i8" in params:
+        w = params["lm_heads_i8"][head].to(hidden.dtype)
+        return (hidden @ w).float() * params["lm_heads_s"][head].float()
+    return (hidden @ params["lm_heads"][head]).float()
 
 
 def alloc_subtalker_cache(
@@ -75,12 +109,14 @@ def subtalker_generate(
     dtype = params["norm"].dtype
     device = prev_hidden.device
 
+    packed = params.get("trunk_packed")
     k_cache, v_cache = alloc_subtalker_cache(cfg, b, dtype, device)
     cos_all, sin_all = rope_cos_sin(
         torch.arange(g, device=device), cfg.head_dim, cfg.rope_theta)  # [G, hd]
-    # Row-wise lengths for every position: cur_len = pos + 1.
-    lengths = torch.arange(1, g + 1, dtype=torch.int32, device=device)[:, None].repeat(1, b)
-    valid_from = torch.zeros(b, dtype=torch.int32, device=device)
+    if packed is None:
+        # Row-wise lengths for every position of the trunk step: pos + 1.
+        lengths = torch.arange(1, g + 1, dtype=torch.int32, device=device)[:, None].repeat(1, b)
+        valid_from = torch.zeros(b, dtype=torch.int32, device=device)
 
     codes = [first_code]
     for pos in range(g):
@@ -89,18 +125,22 @@ def subtalker_generate(
         elif pos == 1:
             x = talker_codec_embedding[codes[-1]]
         else:
-            x = params["embeds"][pos - 2][codes[-1]]
+            x = _embed_table(params, pos - 2, codes[-1], dtype)
         x = _project_input(params, x)
-        cos = cos_all[pos].expand(b, cfg.head_dim)
-        sin = sin_all[pos].expand(b, cfg.head_dim)
-        hidden, k_cache, v_cache = trunk_decode_step(
-            params["trunk"], dims, x, cos, sin, k_cache, v_cache, lengths[pos],
-            valid_from=valid_from,
-        )
+        if packed is not None:
+            hidden, k_cache, v_cache = subtalker_step(
+                packed, x.contiguous(), cos_all[pos], sin_all[pos], k_cache, v_cache, pos,
+                cfg.rms_norm_eps)
+        else:
+            hidden, k_cache, v_cache = trunk_decode_step(
+                params["trunk"], dims, x, cos_all[pos].expand(b, cfg.head_dim),
+                sin_all[pos].expand(b, cfg.head_dim), k_cache, v_cache, lengths[pos],
+                valid_from=valid_from,
+            )
         if pos == 0:
             continue  # position 0 emits no token
         hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
-        logits = (hidden @ params["lm_heads"][pos - 1]).float()
+        logits = _lm_head_logits(params, hidden, pos - 1)
         codes.append(sample_token(logits, sampling, generator))
     return torch.stack(codes, dim=1)
 
@@ -116,5 +156,9 @@ def embed_groups_sum(
     g = codes.shape[1]
     first = talker_codec_embedding[codes[:, 0]]                      # [B, D]
     group_ids = torch.arange(g - 1, device=codes.device)
-    rest = params["embeds"][group_ids[:, None], codes[:, 1:].T]      # [G-1, B, D]
+    if "embeds_i8" in params:
+        rest = params["embeds_i8"][group_ids[:, None], codes[:, 1:].T]
+        rest = rest.to(first.dtype) * params["embeds_s"].to(first.dtype)
+    else:
+        rest = params["embeds"][group_ids[:, None], codes[:, 1:].T]  # [G-1, B, D]
     return first + rest.sum(dim=0)

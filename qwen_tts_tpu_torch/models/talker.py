@@ -4,6 +4,7 @@
 Separate codec and text embedding tables, a 2-layer SiLU text projection, a
 GQA trunk with QK-RMSNorm and 3-section M-RoPE, a final RMSNorm and the codec
 head. The post-norm last hidden state feeds the sub-talker at the next step.
+The KV cache is a tensor or, with ``kv_int8``, an int8 dict (``ops/attention.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.config import TalkerConfig
 from qwen_tts_tpu_torch.models.trunk import TrunkDims, trunk_decode_step, trunk_prefill
+from qwen_tts_tpu_torch.ops.attention import KVCache, quantize_kv
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import merge_mrope_sections, rope_cos_sin
 
@@ -60,8 +62,20 @@ def _mrope_cos_sin(cfg: TalkerConfig, positions: torch.Tensor):
 class TalkerPrefillOut(NamedTuple):
     logits: torch.Tensor       # [B, V] f32 at the last position
     last_hidden: torch.Tensor  # [B, D] post-final-norm
-    k_cache: torch.Tensor      # [L, B, S_max, KV, hd]
-    v_cache: torch.Tensor
+    k_cache: KVCache           # [L, B, S_max, KV, hd]
+    v_cache: KVCache
+
+
+def _prefill_cache_write(cache: KVCache, new: torch.Tensor) -> None:
+    """Write the prefill's K or V block [L, B, S, KV, hd] at position 0, in
+    place; an int8 dict cache quantizes it per token and head."""
+    s = new.shape[2]
+    if isinstance(cache, dict):
+        q8, scale = quantize_kv(new)
+        cache["i8"][:, :, :s] = q8
+        cache["s"][:, :, :s] = scale.to(cache["s"].dtype)
+    else:
+        cache[:, :, :s] = new.to(cache.dtype)
 
 
 def talker_prefill(
@@ -69,8 +83,8 @@ def talker_prefill(
     cfg: TalkerConfig,
     inputs_embeds: torch.Tensor,  # [B, S, D], left-padded
     pad_mask: torch.Tensor,       # [B, S] True = real token
-    k_cache: torch.Tensor,        # [L, B, S_max, KV, hd] preallocated, written in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,             # [L, B, S_max, KV, hd] preallocated, written in place
+    v_cache: KVCache,
 ) -> TalkerPrefillOut:
     s = inputs_embeds.shape[1]
     # Rope positions cumsum(mask) - 1; pad slots get a dummy 0 and are masked.
@@ -83,8 +97,8 @@ def talker_prefill(
     hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
     last_hidden = hidden[:, -1, :]
     logits = (last_hidden @ params["codec_head"]).float()
-    k_cache[:, :, :s] = ks.to(k_cache.dtype)
-    v_cache[:, :, :s] = vs.to(v_cache.dtype)
+    _prefill_cache_write(k_cache, ks)
+    _prefill_cache_write(v_cache, vs)
     return TalkerPrefillOut(logits, last_hidden, k_cache, v_cache)
 
 
@@ -93,11 +107,11 @@ def talker_decode_step(
     cfg: TalkerConfig,
     input_embed: torch.Tensor,  # [B, D]
     rope_pos: torch.Tensor,     # [B] rotary position of this token
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache: KVCache,
+    v_cache: KVCache,
     cur_len: torch.Tensor,      # int32 [B], includes this token
     valid_from: torch.Tensor,   # int32 [B] first valid cache index (left-pad count)
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, torch.Tensor, KVCache, KVCache]:
     """Returns (logits [B,V] f32, last_hidden [B,D] post-norm, k_cache, v_cache)."""
     cos, sin = _mrope_cos_sin(cfg, rope_pos)
     hidden, k_cache, v_cache = trunk_decode_step(
@@ -112,8 +126,15 @@ def talker_decode_step(
 
 def alloc_kv_cache(
     cfg: TalkerConfig, batch: int, max_len: int, dtype=torch.float32, device=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Preallocate the fixed-shape talker KV cache [L, B, max_len, KV, hd]."""
+    *, kv_int8: bool = False,
+) -> Tuple[KVCache, KVCache]:
+    """Preallocate the fixed-shape talker KV cache [L, B, max_len, KV, hd];
+    ``kv_int8`` makes each an int8 dict with f32 scales [L, B, max_len, KV]
+    (initial scale 1e-8, as in the JAX package)."""
     shape = (cfg.num_hidden_layers, batch, max_len, cfg.num_key_value_heads, cfg.head_dim)
+    if kv_int8:
+        return tuple({"i8": torch.zeros(shape, dtype=torch.int8, device=device),
+                      "s": torch.full(shape[:-1], 1e-8, dtype=torch.float32, device=device)}
+                     for _ in range(2))
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))

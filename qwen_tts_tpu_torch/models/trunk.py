@@ -8,8 +8,14 @@ over a leading [L] axis, projections stored [in, out] so each is ``x @ w``.
 
 The decode step writes the new token's K/V into a fixed-shape
 ``[L, B, S_max, KV, hd]`` cache **in place** and attends through the
-hand-written decode-attention kernel (``ops/cuda/decode_attention.py``) for
-CUDA tensors, its plain version for CPU tensors.
+hand-written decode-attention kernels (``ops/cuda/decode_attention.py``) for
+CUDA tensors, their plain version for CPU tensors. A cache is a tensor or an
+int8 dict ``{"i8", "s"}`` (``ops/attention.py``) that is quantized per token
+and head as it is written.
+
+``quantize_trunk_int8`` turns the projections into int8 with per-output-
+channel bf16 scales (``<key>_i8`` / ``<key>_s``); every projection then
+dequantizes at the matmul, ``(x @ w_i8) * s`` in the activation dtype.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from qwen_tts_tpu_torch.ops.attention import attention_prefill
+from qwen_tts_tpu_torch.ops.attention import KVCache, attention_prefill, int8_scale, quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import apply_rope
@@ -36,15 +42,46 @@ class TrunkDims(NamedTuple):
     qk_norm: bool = True
 
 
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+
+
 def _layer(params: dict, l: int) -> dict:
     return {k: v[l] for k, v in params.items()}
 
 
+def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 per channel of the last axis (the max runs over axis
+    -2): (int8 values, bf16 scales with that axis kept as 1). ``torch.round``
+    rounds half to even, as ``jnp.round``; the values are the JAX package's
+    bit for bit."""
+    w = w.float()
+    scale = int8_scale(w.abs().amax(dim=-2, keepdim=True))
+    return torch.round(w / scale).to(torch.int8), scale.to(torch.bfloat16)
+
+
+def quantize_trunk_int8(params: dict) -> dict:
+    """int8 projections with per-output-channel symmetric scales, stored
+    bf16 whatever the model dtype (``<key>_i8`` [L, in, out], ``<key>_s``
+    [L, 1, out])."""
+    out = dict(params)
+    for k in _PROJECTIONS:
+        if k in params:
+            out[k + "_i8"], out[k + "_s"] = quantize_int8(out.pop(k))
+    return out
+
+
+def _w_matmul(layer: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+    """x @ W, dequantizing an int8 weight in the activation dtype."""
+    if key + "_i8" in layer:
+        return (x @ layer[key + "_i8"].to(x.dtype)) * layer[key + "_s"].to(x.dtype)
+    return x @ layer[key]
+
+
 def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
     """x: [..., D] → q [..., H, hd], k/v [..., KV, hd] with QK-RMSNorm."""
-    q = (x @ layer["wq"]).unflatten(-1, (dims.heads, dims.head_dim))
-    k = (x @ layer["wk"]).unflatten(-1, (dims.kv_heads, dims.head_dim))
-    v = (x @ layer["wv"]).unflatten(-1, (dims.kv_heads, dims.head_dim))
+    q = _w_matmul(layer, "wq", x).unflatten(-1, (dims.heads, dims.head_dim))
+    k = _w_matmul(layer, "wk", x).unflatten(-1, (dims.kv_heads, dims.head_dim))
+    v = _w_matmul(layer, "wv", x).unflatten(-1, (dims.kv_heads, dims.head_dim))
     if dims.qk_norm:
         q = rms_norm(q, layer["q_norm"], dims.eps)
         k = rms_norm(k, layer["k_norm"], dims.eps)
@@ -52,7 +89,8 @@ def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
 
 
 def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
-    return (F.silu(x @ layer["gate"]) * (x @ layer["up"])) @ layer["down"]
+    h = F.silu(_w_matmul(layer, "gate", x)) * _w_matmul(layer, "up", x)
+    return _w_matmul(layer, "down", h)
 
 
 def _maybe_scale(layer: dict, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +128,8 @@ def trunk_prefill(
         q = apply_rope(q, cos4, sin4)
         k = apply_rope(k, cos4, sin4)
         attn = attention_prefill(q, k, v, pad_mask=pad_mask, sliding_window=window)
-        hidden = hidden + _maybe_scale(layer, "attn_scale", attn.flatten(-2) @ layer["wo"])
+        hidden = hidden + _maybe_scale(
+            layer, "attn_scale", _w_matmul(layer, "wo", attn.flatten(-2)))
         hidden = hidden + _maybe_scale(
             layer, "mlp_scale", _mlp(layer, rms_norm(hidden, layer["post_attn_norm"], dims.eps)))
         ks.append(k)
@@ -98,20 +137,39 @@ def trunk_prefill(
     return hidden, torch.stack(ks), torch.stack(vs)
 
 
+def _cache_layer(cache: KVCache, l: int) -> KVCache:
+    """Layer ``l`` of a stacked cache (tensor or int8 dict), as a view."""
+    if isinstance(cache, dict):
+        return {"i8": cache["i8"][l], "s": cache["s"][l]}
+    return cache[l]
+
+
+def _cache_write_token(cache: KVCache, l: int, rows: torch.Tensor,
+                       write_pos: torch.Tensor, x: torch.Tensor) -> None:
+    """Write one token's K or V [B, KV, hd] in place at (l, row,
+    write_pos[row]); an int8 dict cache quantizes it per head."""
+    if isinstance(cache, dict):
+        q8, s = quantize_kv(x)
+        cache["i8"][l, rows, write_pos] = q8
+        cache["s"][l, rows, write_pos] = s.to(cache["s"].dtype)
+    else:
+        cache[l, rows, write_pos] = x.to(cache.dtype)
+
+
 def trunk_decode_step(
     params: dict,
     dims: TrunkDims,
-    hidden: torch.Tensor,   # [B, D] — the new token's embedding
-    cos: torch.Tensor,      # [B, hd]
+    hidden: torch.Tensor,  # [B, D] — the new token's embedding
+    cos: torch.Tensor,     # [B, hd]
     sin: torch.Tensor,
-    k_cache: torch.Tensor,  # [L, B, S_max, KV, hd], updated in place
-    v_cache: torch.Tensor,
+    k_cache: KVCache,      # [L, B, S_max, KV, hd], updated in place
+    v_cache: KVCache,
     cur_len: torch.Tensor,  # int32 [B] — length *including* this token
     *,
     valid_from: Optional[torch.Tensor] = None,  # int32 [B]
     sliding_window: Optional[int] = None,
     layer_windows: Optional[Sequence[int]] = None,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, KVCache, KVCache]:
     """Single-token forward across all layers. Returns (hidden, k_cache,
     v_cache); the caches are the ones passed in, written at ``cur_len - 1``
     of each row."""
@@ -129,11 +187,13 @@ def trunk_decode_step(
         q, k, v = _project_qkv(layer, x, dims)
         q = apply_rope(q, cos3, sin3)
         k = apply_rope(k, cos3, sin3)
-        k_cache[l, rows, write_pos] = k.to(k_cache.dtype)
-        v_cache[l, rows, write_pos] = v.to(v_cache.dtype)
+        _cache_write_token(k_cache, l, rows, write_pos, k)
+        _cache_write_token(v_cache, l, rows, write_pos, v)
         window = sliding_window if layer_windows is None else int(layer_windows[l])
-        attn = decode_attention(q, k_cache[l], v_cache[l], cur_len, valid_from, window)
-        hidden = hidden + _maybe_scale(layer, "attn_scale", attn.flatten(-2) @ layer["wo"])
+        attn = decode_attention(q, _cache_layer(k_cache, l), _cache_layer(v_cache, l),
+                                cur_len, valid_from, window)
+        hidden = hidden + _maybe_scale(
+            layer, "attn_scale", _w_matmul(layer, "wo", attn.flatten(-2)))
         hidden = hidden + _maybe_scale(
             layer, "mlp_scale", _mlp(layer, rms_norm(hidden, layer["post_attn_norm"], dims.eps)))
     return hidden, k_cache, v_cache

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``build/torch_kernels/<name>-<hash>.so`` beside
 the package, at first use. The hash covers the source and the flags, so an
 edited source is rebuilt. Nothing is built when a module is imported: the
-CPU tests import every module on a host without ``nvcc``.
+CPU tests import every module on a host without ``nvcc``. Each source has
+its own lock, so two threads build two sources at once.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: Dict[str, threading.Lock] = {}
 _libs: Dict[str, ctypes.CDLL] = {}
 # name -> nvcc's messages from the build (ptxas register / spill report).
 build_logs: Dict[str, str] = {}
@@ -53,6 +55,8 @@ def library_path(name: str) -> str:
 def load_library(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, then load it."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         out = library_path(name)

@@ -1,6 +1,6 @@
 """User-facing API (PyTorch counterpart of ``qwen_tts_tpu/pipeline.py``):
 ``Qwen3TTSModel.from_pretrained`` → ``generate_custom_voice`` /
-``generate_voice_design``.
+``generate_voice_design``, optionally after ``quantize_for_serving``.
 
 Tokenize → build dual-track prompts → prefill + decode loop → per-row EOS
 trim → chunked codec decode → waveforms. The model runs on one device, CUDA
@@ -26,6 +26,9 @@ from qwen_tts_tpu_torch.generate import (
 )
 from qwen_tts_tpu_torch.io.loader import load_checkpoint
 from qwen_tts_tpu_torch.models import codec as codec_mod
+from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8
+from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
+from qwen_tts_tpu_torch.ops.cuda.subtalker_step import pack_subtalker_weights
 from qwen_tts_tpu_torch.utils import Device, resolve_device
 
 MaybeList = Union[str, List[str]]
@@ -56,6 +59,7 @@ class Qwen3TTSModel:
         self.tokenizer = tokenizer
         self.generate_defaults = generate_defaults or {}
         self.device = talker_params["norm"].device
+        self.kv_int8 = False  # set by quantize_for_serving(kv=True)
 
     @classmethod
     def from_pretrained(
@@ -87,6 +91,26 @@ class Qwen3TTSModel:
             with open(gc_path, encoding="utf-8") as f:
                 gen_defaults = json.load(f)
         return cls(cfg, talker, subtalker, codec, tokenizer, gen_defaults)
+
+    def quantize_for_serving(self, *, talker: bool = False,
+                             kv: bool = False) -> "Qwen3TTSModel":
+        """int8 serving mode, in place; returns self. The sub-talker trunk,
+        its stacked tables and its LM heads always go int8 (per-channel bf16
+        scales); each micro-step then runs as one ``subtalker_step`` launch.
+        ``talker=True`` also makes the talker trunk int8; ``kv=True`` keeps the
+        talker KV cache as int8 dicts (per-token, per-head f32 scales). Greedy
+        codes are no longer those of the float model: a serving mode, not
+        the parity default."""
+        st = dict(self.subtalker_params)
+        st["trunk"] = quantize_trunk_int8(st["trunk"])
+        st["trunk_packed"] = pack_subtalker_weights(st["trunk"])
+        self.subtalker_params = quantize_subtalker_tables_int8(st)
+        if talker:
+            self.talker_params = dict(self.talker_params)
+            self.talker_params["trunk"] = quantize_trunk_int8(self.talker_params["trunk"])
+        if kv:
+            self.kv_int8 = True
+        return self
 
     def get_supported_speakers(self) -> List[str]:
         return [name for name, _ in self.cfg.talker.spk_id]
@@ -159,6 +183,7 @@ class Qwen3TTSModel:
             st_sampling=params.subtalker_sampling(),
             max_new_tokens=params.max_new_tokens,
             generator=generator,
+            kv_int8=self.kv_int8,
         )
         codes = out.codes.cpu().numpy().astype(np.int32)
         num_gen = out.num_gen.cpu().numpy()

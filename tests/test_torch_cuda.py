@@ -3,13 +3,27 @@
 Marked ``cuda``: on a host without a GPU every test skips. On the card:
 ``python -m pytest tests/test_torch_cuda.py -q --noconftest``."""
 
+import math
+
 import pytest
 import torch
 
+from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8
+from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
+from qwen_tts_tpu_torch.ops.attention import quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
     decode_attention,
+    decode_attention_int8,
+    decode_attention_int8_plain,
     decode_attention_plain,
 )
+from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
+    KERNEL_DIMS,
+    pack_subtalker_weights,
+    subtalker_step,
+    subtalker_step_plain,
+)
+from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 
 pytestmark = pytest.mark.cuda
 
@@ -54,3 +68,138 @@ def test_decode_attention_rejects_what_it_does_not_take(device):
     with pytest.raises(TypeError):
         decode_attention(q[..., :64].half().contiguous(), k[..., :64].half().contiguous(),
                          k[..., :64].half().contiguous(), lens, lens * 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("heads,kv,hd,s_max", [(16, 2, 64, 97), (16, 8, 128, 16),
+                                               (8, 8, 64, 40), (16, 1, 128, 33)])
+def test_decode_attention_int8_kernel_matches_plain(device, heads, kv, hd, s_max, window,
+                                                    dtype):
+    g = torch.Generator(device=device).manual_seed(1)
+    b = 4
+    q = torch.randn(b, heads, hd, generator=g, device=device).to(dtype)
+    k_cache, v_cache = ({"i8": i8, "s": s} for i8, s in (
+        quantize_kv(torch.randn(b, s_max, kv, hd, generator=g, device=device) * 3)
+        for _ in range(2)))
+    cur_len = torch.tensor([s_max, 1, s_max // 2, 3], dtype=torch.int32, device=device)
+    valid_from = torch.tensor([0, 0, 2, 3], dtype=torch.int32, device=device)  # row 3 empty
+    before = (decode_attention.launches, decode_attention_int8.launches)
+    got = decode_attention(q, k_cache, v_cache, cur_len, valid_from, window)  # dict: int8 kernel
+    torch.cuda.synchronize()
+    assert (decode_attention.launches, decode_attention_int8.launches) == (
+        before[0], before[1] + 1)
+    want = decode_attention_int8_plain(q, k_cache, v_cache, cur_len, valid_from, window)
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+
+
+def test_decode_attention_int8_rejects_what_it_does_not_take(device):
+    q = torch.zeros(1, 16, 64, device=device)
+    lens = torch.ones(1, dtype=torch.int32, device=device)
+    i8 = torch.zeros(1, 8, 2, 64, dtype=torch.int8, device=device)
+    s = torch.ones(1, 8, 2, device=device)
+    with pytest.raises(TypeError):  # bf16 scales
+        decode_attention_int8(q, {"i8": i8, "s": s.bfloat16()}, {"i8": i8, "s": s}, lens, lens * 0)
+    with pytest.raises(ValueError):  # scales of the wrong shape
+        decode_attention_int8(q, {"i8": i8, "s": s[:, :4]}, {"i8": i8, "s": s}, lens, lens * 0)
+    with pytest.raises(ValueError):  # head dim 96
+        i8_96 = torch.zeros(1, 8, 2, 96, dtype=torch.int8, device=device)
+        decode_attention_int8(torch.zeros(1, 16, 96, device=device), {"i8": i8_96, "s": s},
+                              {"i8": i8_96, "s": s}, lens, lens * 0)
+
+
+def _random_packed(device, dtype, seed):
+    """A random int8 trunk at the kernel's dims, packed."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n_layers, d, h, kv, hd, inter = KERNEL_DIMS
+
+    def w(*shape):
+        return torch.randn(*shape, generator=g, device=device) / math.sqrt(shape[-2])
+
+    def norm(*shape):
+        return 1 + 0.1 * torch.randn(*shape, generator=g, device=device)
+
+    trunk = {"wq": w(n_layers, d, h * hd), "wk": w(n_layers, d, kv * hd),
+             "wv": w(n_layers, d, kv * hd), "wo": w(n_layers, h * hd, d),
+             "gate": w(n_layers, d, inter), "up": w(n_layers, d, inter),
+             "down": w(n_layers, inter, d), "input_norm": norm(n_layers, d),
+             "post_attn_norm": norm(n_layers, d), "q_norm": norm(n_layers, hd),
+             "k_norm": norm(n_layers, hd)}
+    return pack_subtalker_weights(quantize_trunk_int8({k: v.to(dtype) for k, v in trunk.items()}))
+
+
+# Relative to the largest reference value. f32: summation order only,
+# through 5 layers. bf16: both sides round at the same points, but a sum in
+# another order moves a value by a bf16 ulp (2^-8), and that carries through
+# the later layers and the cache rows each side attends over.
+STEP_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("batch", [1, 4, 32])
+def test_subtalker_step_kernel_matches_plain(device, batch, dtype):
+    n_layers, d, _, kv, hd, _ = KERNEL_DIMS
+    groups, eps = 16, 1e-6
+    packed = _random_packed(device, dtype, seed=batch)
+    g = torch.Generator(device=device).manual_seed(100 + batch)
+    shape = (n_layers, batch, groups, kv, hd)
+    kc, vc = (torch.zeros(shape, dtype=dtype, device=device) for _ in range(2))
+    kc_p, vc_p = kc.clone(), vc.clone()
+    cos, sin = rope_cos_sin(torch.arange(groups, device=device), hd, 10000.0)
+    before = subtalker_step.launches
+    for pos in range(groups):
+        x = torch.randn(batch, d, generator=g, device=device).to(dtype)
+        got, kc_out, _ = subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps)
+        torch.cuda.synchronize()
+        assert kc_out is kc and got.dtype == dtype and got.shape == (batch, d)
+        want, _, _ = subtalker_step_plain(packed, x, cos[pos], sin[pos], kc_p, vc_p, pos, eps)
+        for a, ref in ((got, want), (kc[:, :, pos], kc_p[:, :, pos]),
+                       (vc[:, :, pos], vc_p[:, :, pos])):
+            torch.testing.assert_close(a.float(), ref.float(), rtol=0,
+                                       atol=STEP_TOL[dtype] * ref.float().abs().max().item())
+    assert subtalker_step.launches == before + groups
+    assert not kc[:, :, groups:].any()  # nothing past the rows it was asked to write
+
+
+def test_subtalker_step_rejects_what_it_does_not_take(device):
+    packed = _random_packed(device, torch.bfloat16, seed=0)
+    n_layers, d, _, kv, hd, _ = KERNEL_DIMS
+    cos, sin = rope_cos_sin(torch.arange(4, device=device), hd, 10000.0)
+
+    def call(x, kc, pos=0, pk=packed):
+        return subtalker_step(pk, x, cos[0], sin[0], kc, kc.clone(), pos, 1e-6)
+
+    x = torch.zeros(2, d, dtype=torch.bfloat16, device=device)
+    kc = torch.zeros(n_layers, 2, 4, kv, hd, dtype=torch.bfloat16, device=device)
+    with pytest.raises(TypeError):  # float16 activations
+        call(x.half(), kc.half())
+    with pytest.raises(TypeError):  # cache dtype other than x's
+        call(x, kc.float())
+    with pytest.raises(ValueError):  # position past the cache
+        call(x, kc, pos=4)
+    with pytest.raises(ValueError):  # more rows than the kernel takes
+        call(torch.zeros(33, d, dtype=torch.bfloat16, device=device),
+             torch.zeros(n_layers, 33, 4, kv, hd, dtype=torch.bfloat16, device=device))
+    with pytest.raises(ValueError):  # other dims than the kernel is built for
+        small = {k: v[:2] for k, v in packed.items()}
+        call(x, kc[:2], pk=small)
+
+
+def test_quantizers_give_the_cpu_bits_on_the_card(device):
+    """The int8 values and scales made on the card equal those made on the
+    CPU (which equal the JAX package's): a division by a Python scalar would
+    be a reciprocal multiply on the card, an ulp off at times."""
+    g = torch.Generator().manual_seed(5)
+    w = {"wq": torch.randn(2, 256, 512, generator=g) * 0.05,
+         "embeds": torch.randn(3, 300, 256, generator=g),
+         "lm_heads": torch.randn(3, 256, 300, generator=g)}
+    kv = torch.randn(2, 7, 4, 64, generator=g) * 3
+    for quantize, tree in ((quantize_trunk_int8, {"wq": w["wq"]}),
+                           (quantize_subtalker_tables_int8,
+                            {"embeds": w["embeds"], "lm_heads": w["lm_heads"]})):
+        cpu = quantize(tree)
+        card = quantize({k: v.to(device) for k, v in tree.items()})
+        for k in cpu:
+            assert torch.equal(card[k].cpu(), cpu[k]), k
+    for a, b in zip(quantize_kv(kv.to(device)), quantize_kv(kv)):
+        assert torch.equal(a.cpu(), b)
