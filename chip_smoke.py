@@ -12,9 +12,11 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes (decode attention over float and int8 caches: both dtypes, ragged
    rows, with and without a window; the sub-talker micro-step: B 1/4/32,
-   both dtypes, every position, the cache rows it wrote included), then its
-   time beside the plain version, a library yardstick where one exists and
-   the bound;
+   both dtypes, every position, the cache rows it wrote included; the
+   vocoder block: both geometries, B 1/4, ragged and sub-tile lengths, the
+   stream's first packet and windows), then its time beside the plain
+   version, a library yardstick where one exists and the bound (the vocoder
+   block is held against its plain version at its timed shapes too);
 4. path: writes a random-weight checkpoint at the flagship 12 Hz dims,
    loads it with ``Qwen3TTSModel.from_pretrained`` and runs
    ``generate_custom_voice`` for a batch of 4 (talker bf16, codec f32,
@@ -28,7 +30,18 @@ Phases, each of which exits non-zero on failure:
    talker layers times, the float-cache attention not at all;
 7. serving parity: phase 5 with int8 weights (``quantize_for_serving(
    talker=True)``, codes equal), then with the int8 KV cache as well
-   (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``).
+   (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``);
+8. bf16 codec: ``from_pretrained(codec_dtype=torch.bfloat16)`` and
+   ``decode_codes`` of the path phase's codes; the fused vocoder-block kernel
+   must launch twice per codec call (blocks 2 and 3) and the whole decode,
+   before the clamp, must lie within ``BF16_CODEC_REL_L2`` of the same decode
+   with the block's plain version; the f32 codec of phase 4 launches it not
+   at all;
+9. streaming: ``stream_custom_voice`` (bf16 talker, bf16 codec, B=1, greedy,
+   EOS banned): first-packet latency, each chunk's wall time, the RTF; the
+   chunks must hold frames x 1920 samples, the kernels must launch exactly as
+   the chunk schedule predicts, and the streamed codes must equal
+   ``generate_codes`` at the stream's prompt bucket (16).
 
 The line before the last holds the kernels' JSON records; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``qwen_tts_tpu``.
@@ -69,7 +82,22 @@ STEP_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # non-tensor-core f32, same source
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, same source
-KERNEL_SOURCES = ("decode_attention", "subtalker_step")
+KERNEL_SOURCES = ("decode_attention", "subtalker_step", "vocoder_block")
+# The vocoder-block kernel against its plain version, relative to the
+# largest reference value: both round at the same points, but the f32 sums
+# run in another order, so an intermediate can land one bf16 ulp (2^-8) apart
+# and carry through the later convs of the block.
+VOCODER_TOL = 2 ** -6
+# The whole bf16 decode through the kernel against the same decode with the
+# block's plain version, relative L2 over the flagship random codec's
+# waveforms before the clamp (see phase_codec_bf16): the one-ulp differences
+# above, carried through block 3 and the final conv. Measured 0.01562 on an
+# NVIDIA H100 80GB HBM3 (700 W); the limit is twice that. The sharp check of
+# the decode is teacher-forced: each launch in it is held to VOCODER_TOL.
+BF16_CODEC_REL_L2 = 0.03
+# The stream's schedule: a 2-frame first packet, then 25-frame chunks, each
+# decoded in a window with 25 frames of left context.
+STREAM_FIRST, STREAM_CHUNK, STREAM_CONTEXT = 2, 25, 25
 
 
 def log(msg: str) -> None:
@@ -642,45 +670,227 @@ def phase_kernels_subtalker_step(groups: int = 16):
     return rec
 
 
-# TPU kernel still to port: scripts/exp_pallas_vocoder.py `fused_block`, its
-# `BLOCKS` (c_in, c_out, rate, T_in at 128 frames for batch 32), dilations
-# 1/3/9, bf16. Kept here as numbers: this script imports nothing of JAX.
+# scripts/exp_pallas_vocoder.py `BLOCKS` (c_in, c_out, rate, T_in at 128
+# frames for batch 32): the codec's blocks 2 and 3, the two geometries the
+# TPU kernel was written for. Kept here as numbers: this script imports
+# nothing of JAX.
 VOCODER_BLOCKS = {"b2": (384, 192, 4, 20480), "b3": (192, 96, 3, 81920)}
+VOCODER_FRAMES = 128  # T_in above is 160 (b2) / 640 (b3) rows per frame
 VOCODER_BATCH = 32
+# The codec's residual units convolve 7 taps (its checkpoint's conv1
+# weights, `codec_specs`); the TPU kernel was written for 3.
+CODEC_RESUNIT_TAPS = 7
 
 
-def vocoder_block_bounds():
-    """The least time the card could take for one fused vocoder block (TPU
-    kernel #3, not ported yet): bf16 input read once and output written once
-    (plus weights), against the transposed conv (2 taps of c_in x c_out per
-    output row) and the 3 residual units (k=3 and k=1 convs, c_out x c_out)
-    at the bf16 tensor-core rate. The SnakeBeta polynomials run beside them
-    on the CUDA cores and are not counted."""
-    out = {}
-    for name, (c_in, c_out, rate, t_in) in VOCODER_BLOCKS.items():
-        t_out = t_in * rate
-        weights = 2 * (2 * rate * c_in * c_out + 3 * (3 + 1) * c_out * c_out)
-        moved = 2 * VOCODER_BATCH * (t_in * c_in + t_out * c_out) + weights
-        flops = 2 * VOCODER_BATCH * t_out * (2 * c_in * c_out + 3 * (3 + 1) * c_out * c_out)
-        bytes_ms = moved / H100_BYTES_PER_S * 1e3
-        flops_ms = flops / H100_BF16_FLOPS * 1e3
-        out[name] = {"bytes": moved, "flops": flops, "bytes_ms": bytes_ms, "flops_ms": flops_ms,
-                     "bound_ms": max(bytes_ms, flops_ms),
-                     "bound_by": "bytes" if bytes_ms >= flops_ms else "operations"}
-        log(f"kernel still to port: fused vocoder block {name} B={VOCODER_BATCH} "
-            f"T_in={t_in}: {moved / 1e6:.1f} MB, {flops / 1e9:.1f} GFLOP -> bound "
-            f"{out[name]['bound_ms']:.3f} ms ({out[name]['bound_by']})")
-    return out
+def vocoder_block_bound(b: int, t_in: int, c_in: int, c_out: int, rate: int, taps: int):
+    """The least time the card could take for one vocoder block on these
+    inputs: the bf16 input read once, the output written once, the weights
+    (bf16) and per-channel vectors (f32) read once, against the transposed
+    conv (2 taps of c_in x c_out per output row) and the 3 residual units
+    (``taps``-tap and 1x1 convs, c_out x c_out) at the bf16 tensor-core rate.
+    The SnakeBeta polynomials run beside them on the CUDA cores and are not
+    counted. Returns (bound_ms, bound_by, bytes, flops)."""
+    t_out = t_in * rate
+    weights = 2 * (2 * rate * c_in * c_out + 3 * (taps + 1) * c_out * c_out)
+    vectors = 4 * (2 * c_in + 19 * c_out)
+    moved = 2 * b * (t_in * c_in + t_out * c_out) + weights + vectors
+    flops = 2 * b * t_out * (2 * c_in * c_out + 3 * (taps + 1) * c_out * c_out)
+    bytes_ms = moved / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_BF16_FLOPS * 1e3
+    return (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations",
+            moved, flops)
+
+
+def random_vocoder_block(gen, c_in: int, c_out: int, rate: int, taps: int):
+    """A bf16 codec block in the loader's layouts on ``gen``'s device: weights
+    N(0, 1/fan_in), SnakeBeta alpha/beta exp(N(0, 0.1^2)), biases N(0, 0.01^2)."""
+    import torch
+
+    dev = gen.device
+
+    def w(*shape, fan):
+        return (torch.randn(*shape, generator=gen, device=dev) / math.sqrt(fan)).bfloat16()
+
+    def snake(c):
+        return (0.1 * torch.randn(c, generator=gen, device=dev)).exp().bfloat16()
+
+    def bias(c):
+        return (0.01 * torch.randn(c, generator=gen, device=dev)).bfloat16()
+
+    units = [{"alpha1": snake(c_out), "beta1": snake(c_out),
+              "conv1_w": w(taps, c_out, c_out, fan=taps * c_out), "conv1_b": bias(c_out),
+              "alpha2": snake(c_out), "beta2": snake(c_out),
+              "conv2_w": w(1, c_out, c_out, fan=c_out), "conv2_b": bias(c_out)}
+             for _ in range(3)]
+    return {"alpha": snake(c_in), "beta": snake(c_in),
+            "tconv_w": w(2 * rate, c_in, c_out, fan=2 * c_in), "tconv_b": bias(c_out),
+            "resunits": units}
+
+
+def vocoder_block_library(x, block: dict, rate: int):
+    """The library yardstick of ``vocoder_block``: the same block as a bf16
+    composition of cuDNN convs (bias added by PyTorch, so it rounds twice
+    where the kernel rounds once) and eager SnakeBeta passes, in PyTorch's
+    channels-first layout. No single PyTorch call computes a fused block;
+    this is timed here and used nowhere in the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from qwen_tts_tpu_torch.ops.snake import snake_beta
+
+    def snake(h, a, b):  # channels-first h [B, C, T]
+        return snake_beta(h.transpose(1, 2), a, b).transpose(1, 2)
+
+    h = snake(x.transpose(1, 2), block["alpha"], block["beta"])
+    w = torch.flip(block["tconv_w"], dims=(0,)).permute(1, 2, 0)
+    h = F.conv_transpose1d(h, w, block["tconv_b"], stride=rate)[..., : x.shape[1] * rate]
+    for unit, d in zip(block["resunits"], (1, 3, 9)):
+        a = snake(h, unit["alpha1"], unit["beta1"])
+        reach = (unit["conv1_w"].shape[0] - 1) * d
+        a = F.conv1d(F.pad(a, (reach, 0)), unit["conv1_w"].permute(2, 1, 0), unit["conv1_b"],
+                     dilation=d)
+        a = snake(a, unit["alpha2"], unit["beta2"])
+        h = h + F.conv1d(a, unit["conv2_w"].permute(2, 1, 0), unit["conv2_b"])
+    return h.transpose(1, 2)
+
+
+def _device_us(fn, name: str, iters: int = 5) -> float:
+    """Mean device time (us) of the kernels whose name holds ``name`` over
+    ``iters`` calls, from torch.profiler; 0.0 if it saw none."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and name in e.key)
+    return total / iters
+
+
+def hold_vocoder_block(x, block: dict, rate: int, label: str) -> float:
+    """One counted launch of vocoder_block on x against vocoder_block_plain
+    on the same input, within VOCODER_TOL x max |ref|. Returns (max |err|,
+    the kernel's output)."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block, vocoder_block_plain
+
+    before = vocoder_block.launches
+    got = vocoder_block(x, block, rate)
+    torch.cuda.synchronize()
+    if vocoder_block.launches != before + 1:
+        fail("vocoder_block did not count its launch")
+    want = vocoder_block_plain(x, block, rate)
+    if got.shape != want.shape or got.dtype != torch.bfloat16:
+        fail(f"vocoder_block {label}: {tuple(got.shape)} {got.dtype}, want "
+             f"{tuple(want.shape)} bfloat16")
+    err = (got.float() - want.float()).abs().max().item()
+    limit = VOCODER_TOL * want.float().abs().max().item()
+    log(f"kernel check: vocoder_block {label}: max_abs_err={err:.3g} (tol {limit:.3g} = "
+        f"{VOCODER_TOL} x max|ref|)")
+    if not err <= limit:
+        fail(f"vocoder_block {label} disagrees with its plain version: {err} > {limit}")
+    return err, got
+
+
+def phase_kernels_vocoder_block():
+    """vocoder_block against its plain version on the card (both geometries,
+    the codec's 7-tap residual convs and the TPU kernel's 3-tap ones, B 1/4,
+    a ragged last tile and a length shorter than one tile; the stream's first
+    packet and windows at B=1), then timed, and held against the plain
+    version again, at the TPU kernel's shapes (B=32, 128 frames; 3 and 7
+    taps) and the path's (B=4, 64 frames, 7 taps). Returns the JSON record:
+    its times are those of the two launches of one bf16 codec_decode at the
+    path's shapes."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import (
+        kernel_tile, vocoder_block, vocoder_block_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = 0.0
+    for taps in (CODEC_RESUNIT_TAPS, 3):
+        for name, (c_in, c_out, rate, t_in_128) in VOCODER_BLOCKS.items():
+            block = random_vocoder_block(gen, c_in, c_out, rate, taps)
+            l_ext, halo, smem = kernel_tile(c_in, c_out, rate, taps)
+            t_tile = l_ext - halo
+            # < one tile, a ragged last tile, exactly two tiles' inputs.
+            cases = [(b, t_in) for t_in in (t_tile // rate - 5, 3 * t_tile // rate + 7,
+                                            2 * t_tile // rate) for b in (1, 4)]
+            if taps == CODEC_RESUNIT_TAPS:  # the stream's first packet and its windows
+                cases += [(1, frames * t_in_128 // VOCODER_FRAMES)
+                          for frames in (STREAM_FIRST, STREAM_CONTEXT + STREAM_CHUNK)]
+            for b, t_in in cases:
+                x = (0.5 * torch.randn(b, t_in, c_in, generator=gen, device="cuda")).bfloat16()
+                err, _ = hold_vocoder_block(
+                    x, block, rate, f"{name} {c_in}->{c_out} s={rate} K={taps} B={b} "
+                    f"T_in={t_in} (T_out {t_in * rate}, tile {t_tile} + halo {halo}, "
+                    f"{smem} B shared)")
+                worst = max(worst, err)
+    blocks = {(name, taps): random_vocoder_block(gen, c_in, c_out, rate, taps)
+              for name, (c_in, c_out, rate, _) in VOCODER_BLOCKS.items()
+              for taps in (3, CODEC_RESUNIT_TAPS)}
+
+    rows = []
+    # The TPU kernel's shapes with its own 3-tap units and with the codec's,
+    # then the path's shapes with the codec's.
+    for b, frames, taps in ((VOCODER_BATCH, VOCODER_FRAMES, 3),
+                            (VOCODER_BATCH, VOCODER_FRAMES, CODEC_RESUNIT_TAPS),
+                            (4, FRAMES, CODEC_RESUNIT_TAPS)):
+        for name, (c_in, c_out, rate, t_in_128) in VOCODER_BLOCKS.items():
+            t_in = t_in_128 // VOCODER_FRAMES * frames
+            block = blocks[name, taps]
+            x = (0.5 * torch.randn(b, t_in, c_in, generator=gen, device="cuda")).bfloat16()
+            iters = 5 if b == VOCODER_BATCH else 20
+            kernel_ms = _time_ms(lambda: vocoder_block(x, block, rate), iters=iters, warmup=2)
+            device_ms = _device_us(lambda: vocoder_block(x, block, rate),
+                                   "vocoder_block_kernel") / 1e3
+            plain_ms = _time_ms(lambda: vocoder_block_plain(x, block, rate), iters=3, warmup=1)
+            library_ms = _time_ms(lambda: vocoder_block_library(x, block, rate), iters=iters,
+                                  warmup=2)
+            bound_ms, bound_by, moved, flops = vocoder_block_bound(b, t_in, c_in, c_out, rate,
+                                                                   taps)
+            row = {"block": name, "K": taps, "B": b, "frames": frames, "T_in": t_in,
+                   "ms": kernel_ms,
+                   "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "GB": moved / 1e9, "GFLOP": flops / 1e9}
+            rows.append(row)
+            log(f"kernel time: vocoder_block {json.dumps(row)}")
+            err, _ = hold_vocoder_block(x, block, rate,
+                                        f"{name} K={taps} B={b} T_in={t_in} (timed shape)")
+            worst = max(worst, err)
+            torch.cuda.empty_cache()
+    path = [r for r in rows if r["B"] == 4]  # b2, then b3
+    rec = {
+        "name": "vocoder_block", "route": "cuda",
+        "source": "qwen_tts_tpu_torch/csrc/vocoder_block.cu",
+        "replaces": "scripts/exp_pallas_vocoder.py:138",
+        "shape": f"blocks 2+3 of one bf16 codec_decode, B=4, {FRAMES} frames, 7-tap units "
+                 f"(2 launches: b2 384->192 s=4 T_in {path[0]['T_in']}, b3 192->96 s=3 "
+                 f"T_in {path[1]['T_in']}); per-block rows (B=4; B=32 x 128 frames with 3 "
+                 f"and 7 taps) in 'blocks'",
+        "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
+        "library_ms": sum(r["library_ms"] for r in path),
+        "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": path[0]["bound_by"],
+        "max_abs_err": worst, "blocks": rows,
+    }
+    return rec
 
 
 def _counters():
-    """The launch counters of the three kernel wrappers."""
+    """The launch counters of the four kernel wrappers."""
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
         decode_attention, decode_attention_int8)
     from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block
 
     return {"decode_attention": decode_attention, "decode_attention_int8": decode_attention_int8,
-            "subtalker_step": subtalker_step}
+            "subtalker_step": subtalker_step, "vocoder_block": vocoder_block}
 
 
 def phase_path(model_dir: str, smi: str, serving: bool = False):
@@ -720,13 +930,14 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     launches = {k: fn.launches for k, fn in counters.items()}
     if serving:
         expected = {"decode_attention": 0, "decode_attention_int8": MAX_NEW * talker_layers,
-                    "subtalker_step": MAX_NEW * g}
+                    "subtalker_step": MAX_NEW * g, "vocoder_block": 0}
         how = (f"int8 attention {MAX_NEW} frames x {talker_layers} talker layers, "
-               f"micro-step {MAX_NEW} frames x {g} groups, float attention 0")
+               f"micro-step {MAX_NEW} frames x {g} groups, float attention and the f32 "
+               f"codec's vocoder blocks 0")
     else:
         per_frame = talker_layers + g * tk.code_predictor.num_hidden_layers
         expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
-                    "subtalker_step": 0}
+                    "subtalker_step": 0, "vocoder_block": 0}
         how = f"decode_attention {MAX_NEW} frames x {per_frame}, the others 0"
     log(f"{name}: launches {launches}, expected {expected} ({how})")
     if launches != expected:
@@ -755,14 +966,14 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     codes, _ = model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
     t_codes = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model.decode_codes(codes)
+    codec_wavs = model.decode_codes(codes)
     t_codec = time.perf_counter() - t0
     log(f"{name} split: decode loop {t_codes:.3f} s ({t_codes / MAX_NEW * 1e3:.2f} ms/step), "
-        f"codec {t_codec:.3f} s | {smi}")
+        f"codec (f32) {t_codec:.3f} s | {smi}")
     profile_decode(model, prompts, dict(kw, max_new_tokens=9, min_new_tokens=10), smi, name)
     del model
     torch.cuda.empty_cache()
-    return launches
+    return {"launches": launches, "codes": codes, "wavs": codec_wavs, "codec_s": t_codec}
 
 
 def profile_decode(model, prompts, kw, smi: str, name: str) -> None:
@@ -932,6 +1143,210 @@ def phase_parity(model_dir: str, mode: str = "float"):
              f"{step}, max logit diff {worst:.3g}")
 
 
+def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
+    """The bf16 codec on the path phase's codes: the vocoder-block kernel
+    launches twice per codec_decode call; the waveforms are finite, in
+    [-1, 1] and 1920 samples per frame. Teacher-forced, each launch in a
+    decode is held against the plain version on its own input. Before the
+    clamp the waveforms lie within BF16_CODEC_REL_L2 of the same decode
+    through the block's plain version. (The random codec drives ~99% of its
+    samples into the clamp, where a sign flip of a large value reads as a
+    difference of 2, so that comparison scales the final conv, the last op
+    before the clamp, by 2^-20: exact in bf16, it gives the unclamped
+    waveform x 2^-20.)"""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.models import codec as codec_mod
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block, vocoder_block_plain
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    t0 = time.perf_counter()
+    model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
+                                          load_tokenizer=False)
+    log(f"codec bf16: from_pretrained (bf16 talker, bf16 codec) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    codes = path["codes"]
+    model.decode_codes(codes)  # warm-up
+    torch.cuda.synchronize()
+    calls = []
+    original = codec_mod.codec_decode
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return original(*args, **kwargs)
+
+    codec_mod.codec_decode = counting
+    try:
+        for fn in _counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        wavs = model.decode_codes(codes)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        codec_mod.codec_decode = original
+    launches = {k: fn.launches for k, fn in _counters().items()}
+    expected = {"decode_attention": 0, "decode_attention_int8": 0, "subtalker_step": 0,
+                "vocoder_block": 2 * len(calls)}
+    log(f"codec bf16: launches {launches}, expected {expected} (2 vocoder blocks x "
+        f"{len(calls)} codec_decode call(s))")
+    if launches != expected or not calls:
+        fail("the bf16 codec did not launch the vocoder-block kernel as expected")
+    want_len = [c.shape[0] * model.cfg.codec.decode_upsample_rate for c in codes]
+    for i, (w, n) in enumerate(zip(wavs, want_len)):
+        if w.shape != (n,) or not np.isfinite(w).all() or np.abs(w).max() > 1:
+            fail(f"bf16 codec waveform {i}: shape {w.shape} (want {n}), finite "
+                 f"{np.isfinite(w).all()}, max |x| {np.abs(w).max()}")
+
+    a = np.concatenate(wavs)
+    f32 = np.concatenate(path["wavs"])
+    rel_f32 = float(np.linalg.norm(a - f32) / np.linalg.norm(f32))
+    log(f"codec bf16: bf16 vs f32 codec (not asserted): relative L2 {rel_f32:.4g}, max |diff| "
+        f"{np.abs(a - f32).max():.4g}, unclipped share {np.mean(np.abs(a) < 1):.4f}")
+
+    def holding(x, block, rate):
+        return hold_vocoder_block(x, block, rate, f"in codec_decode, C_in={x.shape[2]} "
+                                  f"B={x.shape[0]} T_in={x.shape[1]} (teacher-forced)")[1]
+
+    full = model.codec_params
+    model.codec_params = dict(full, final_conv_w=full["final_conv_w"] * 2.0 ** -20,
+                              final_conv_b=full["final_conv_b"] * 2.0 ** -20)
+    try:
+        codec_mod.vocoder_block = holding
+        model.decode_codes(codes)
+        codec_mod.vocoder_block = vocoder_block
+        kernel = np.concatenate(model.decode_codes(codes))
+        codec_mod.vocoder_block = vocoder_block_plain
+        plain = np.concatenate(model.decode_codes(codes))
+    finally:
+        codec_mod.vocoder_block = vocoder_block
+        model.codec_params = full
+    if not np.abs(plain).max() < 1:
+        fail(f"bf16 codec: the scaled final conv still reaches the clamp ({np.abs(plain).max()})")
+    rel = float(np.linalg.norm(kernel - plain) / np.linalg.norm(plain))
+    log(f"codec bf16: kernel route vs plain route on the card, before the clamp: relative L2 "
+        f"{rel:.4g} (tol {BF16_CODEC_REL_L2}), max |diff| "
+        f"{np.abs(kernel - plain).max() * 2 ** 20:.4g} of max |ref| "
+        f"{np.abs(plain).max() * 2 ** 20:.4g}")
+    if not rel <= BF16_CODEC_REL_L2:
+        fail(f"bf16 codec through the kernel disagrees with the plain route: {rel}")
+    audio_s = sum(want_len) / model.sample_rate
+    log(f"codec bf16: decode_codes B={len(codes)} frames={codes[0].shape[0]} wall "
+        f"{wall:.4f} s (f32 codec in the path phase {path['codec_s']:.4f} s), audio "
+        f"{audio_s:.2f} s | {smi}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _recording_segments(pipeline_mod, frames: list):
+    """Wrap the pipeline's first-packet program and decode_segment so every
+    frame the stream generates is appended to ``frames`` (row 0's num_gen
+    delta of each call). Returns the originals."""
+    originals = (pipeline_mod._first_packet_program, pipeline_mod.decode_segment)
+
+    def recording(fn):
+        def wrapped(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            n = int(out[0].num_gen[0])
+            frames.extend(out[1][0, : n - len(frames)].cpu().numpy())
+            return out
+        return wrapped
+
+    pipeline_mod._first_packet_program = recording(originals[0])
+    pipeline_mod.decode_segment = recording(originals[1])
+    return originals
+
+
+def phase_stream(model_dir: str, smi: str):
+    """``stream_custom_voice`` at the flagship dims, bf16 talker and codec,
+    B=1, greedy, EOS banned. Returns the kernels' launches in the timed
+    stream."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch import pipeline as pipeline_mod
+    from qwen_tts_tpu_torch.generate import batch_prompts, build_prompt, generate_codes
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
+                                          load_tokenizer=False)
+    model.tokenizer = ChatTemplateTokenizer()
+    text, speaker, language = TEXTS[0], "aiden", "english"
+    kw = dict(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1, do_sample=False,
+              subtalker_dosample=False, repetition_penalty=1.0)
+    first, chunk, ctx = STREAM_FIRST, STREAM_CHUNK, STREAM_CONTEXT
+    for _ in model.stream_custom_voice(text, speaker, language, **dict(kw, max_new_tokens=4)):
+        pass  # warm-up
+    torch.cuda.synchronize()
+
+    frames = []
+    originals = _recording_segments(pipeline_mod, frames)
+    for fn in _counters().values():
+        fn.launches = 0
+    try:
+        chunks, stamps = [], []
+        t0 = time.perf_counter()
+        for wav, sr in model.stream_custom_voice(text, speaker, language,
+                                                 first_chunk_frames=first, chunk_frames=chunk,
+                                                 left_context_frames=ctx, **kw):
+            stamps.append(time.perf_counter() - t0)
+            chunks.append(wav)
+        wall = time.perf_counter() - t0
+    finally:
+        pipeline_mod._first_packet_program, pipeline_mod.decode_segment = originals
+    launches = {k: fn.launches for k, fn in _counters().items()}
+
+    up = model.cfg.codec.decode_upsample_rate
+    sizes = [c.shape[0] // up for c in chunks]
+    # MAX_NEW frames generated, the budget-exhausted last one dropped.
+    schedule = [first] + [chunk] * ((FRAMES - first) // chunk)
+    if (FRAMES - first) % chunk:
+        schedule.append((FRAMES - first) % chunk)
+    tk = model.cfg.talker
+    per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
+    expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
+                "subtalker_step": 0, "vocoder_block": 2 * len(schedule)}
+    gaps = np.diff([0.0] + stamps)
+    audio_s = sum(c.shape[0] for c in chunks) / model.sample_rate
+    log(f"stream: B=1 first_chunk {first}, chunk {chunk}, left context {ctx} frames: "
+        f"{len(chunks)} chunks of {sizes} frames, {sum(c.shape[0] for c in chunks)} samples; "
+        f"first-packet latency {stamps[0] * 1e3:.2f} ms; chunk wall times (ms) "
+        f"{[round(float(g) * 1e3, 2) for g in gaps]}; wall {wall:.3f} s, audio {audio_s:.2f} s, "
+        f"RTF(audio/wall) {audio_s / wall:.3f} | {smi}")
+    log(f"stream: launches {launches}, expected {expected} (decode_attention {MAX_NEW} frames "
+        f"x {per_frame}; vocoder_block 2 per codec window, {len(schedule)} windows)")
+    if sizes != schedule or sum(c.shape[0] for c in chunks) != FRAMES * up:
+        fail(f"stream: chunks of {sizes} frames, want {schedule} ({FRAMES} x {up} samples)")
+    for i, c in enumerate(chunks):
+        if not np.isfinite(c).all() or np.abs(c).max() > 1:
+            fail(f"stream chunk {i}: finite {np.isfinite(c).all()}, max |x| {np.abs(c).max()}")
+    if launches != expected:
+        fail("the stream did not launch the kernels as its chunk schedule predicts")
+
+    prompt = build_prompt(model.talker_params, model.cfg,
+                          model._tokenize(model.build_assistant_text(text)),
+                          language=language, speaker=speaker)
+    embeds, mask, trailing, _ = batch_prompts([prompt], bucket=16)
+    params = model._merge_params(**kw)
+    dtype = model.talker_params["norm"].dtype
+    out = generate_codes(model.talker_params, model.subtalker_params, tk, embeds.to(dtype),
+                         mask, trailing.to(dtype), sampling=params.talker_sampling(),
+                         st_sampling=params.subtalker_sampling(), max_new_tokens=MAX_NEW,
+                         generator=None)
+    oneshot = out.codes[0, : int(out.num_gen[0])].cpu().numpy()
+    streamed = np.stack(frames)[:FRAMES]
+    equal = streamed.shape == oneshot.shape and bool((streamed == oneshot).all())
+    log(f"stream: greedy codes {streamed.shape} "
+        f"{'equal' if equal else 'differ from'} generate_codes at prompt bucket 16 "
+        f"{oneshot.shape}")
+    if not equal:
+        fail("streamed codes differ from the one-shot codes")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -939,7 +1354,7 @@ def main() -> int:
     phase_build()
     prefill_bucket = 32
     records = phase_kernels(prefill_bucket + MAX_NEW)
-    vocoder_block_bounds()
+    records.append(phase_kernels_vocoder_block())
     model_dir = tempfile.mkdtemp(prefix="qtts_smoke_")
     try:
         cfg = flagship_config()
@@ -954,12 +1369,15 @@ def main() -> int:
         serving = phase_path(model_dir, smi, serving=True)
         phase_parity(model_dir, "int8")
         phase_parity(model_dir, "int8+kv")
+        phase_codec_bf16(model_dir, smi, path)
+        stream = phase_stream(model_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.
-    records[0]["launches"] = path["decode_attention"]
-    records[1]["launches"] = serving["decode_attention_int8"]
-    records[2]["launches"] = serving["subtalker_step"]
+    records[0]["launches"] = path["launches"]["decode_attention"]
+    records[1]["launches"] = serving["launches"]["decode_attention_int8"]
+    records[2]["launches"] = serving["launches"]["subtalker_step"]
+    records[3]["launches"] = stream["vocoder_block"]
     print(json.dumps({"kernels": records}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,9 @@ codec-track embedding. The decode loop is a plain Python loop over frames:
 each frame runs the sub-talker micro-decode, the group-embedding sum plus the
 trailing text, the talker single-token step, logits processing and sampling.
 EOS is tracked per row and the loop ends when every row has stopped or used
-its frame budget.
+its frame budget. Streaming runs the same loop in resumable segments:
+``init_decode(first_segment=...)`` right after the prefill, then
+``decode_segment`` on the carried ``DecodeState``.
 """
 
 from __future__ import annotations
@@ -237,6 +239,7 @@ class DecodeState:
     prefix_len: torch.Tensor  # [B] int32 prefill length
     n_real: torch.Tensor      # [B] int32 unpadded prefix lengths
     valid_from: torch.Tensor  # [B] int32 left-pad counts
+    generator: Optional[torch.Generator] = None  # sampling draws, carried across segments
 
 
 def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device):
@@ -269,9 +272,20 @@ def init_decode(
     max_cache_len: int,
     generator: Optional[torch.Generator],
     kv_int8: bool = False,
-) -> DecodeState:
+    st_params: Optional[dict] = None,
+    st_sampling: Optional[SamplingConfig] = None,
+    first_segment: int = 0,
+    trailing: Optional[torch.Tensor] = None,
+    step_limit: Optional[Union[int, Sequence[int], torch.Tensor]] = None,
+) -> Union[DecodeState, Tuple[DecodeState, torch.Tensor]]:
     """Prefill + first-token sample; returns the decode state. ``kv_int8``
-    keeps the talker KV cache as int8 dicts."""
+    keeps the talker KV cache as int8 dicts.
+
+    With ``first_segment > 0`` (needs ``st_params``, ``st_sampling`` and
+    ``trailing``) the first frames run right after the prefill, and the
+    result is ``(state, codes [B, first_segment, G])``, as from
+    ``decode_segment``. ``step_limit`` (int or per row) caps each row's
+    frames; it defaults to ``first_segment``."""
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     k_cache, v_cache = talker_mod.alloc_kv_cache(
@@ -283,12 +297,24 @@ def init_decode(
     zeros = torch.zeros(b, dtype=torch.int32, device=device)
     token0 = _processor(talker_cfg, sampling, device)(pre.logits, presence, zeros, generator)
     presence[torch.arange(b, device=device), token0] = True
-    return DecodeState(
+    state = DecodeState(
         token=token0, hidden=pre.last_hidden, k_cache=pre.k_cache, v_cache=pre.v_cache,
         presence=presence, eos=token0 == talker_cfg.codec_eos_token_id, num_gen=zeros,
         prefix_len=torch.full((b,), s, dtype=torch.int32, device=device),
-        n_real=n_real, valid_from=s - n_real,
+        n_real=n_real, valid_from=s - n_real, generator=generator,
     )
+    if first_segment <= 0:
+        return state
+    limit = _row_limit(first_segment if step_limit is None else step_limit, b, device)
+    body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
+                       trailing, limit, generator)
+    return _segment_loop(body, state, first_segment, limit, talker_cfg.num_code_groups)
+
+
+def _row_limit(step_limit: Union[int, Sequence[int], torch.Tensor], b: int,
+               device) -> torch.Tensor:
+    """A frame budget (int or per row) as an int32 [B] tensor."""
+    return torch.as_tensor(step_limit, dtype=torch.int32, device=device).expand(b)
 
 
 def _frame_body(
@@ -359,6 +385,33 @@ def _segment_loop(body, state: DecodeState, segment: int, step_limit: torch.Tens
     return state, buf
 
 
+def decode_segment(
+    talker_params: dict,
+    st_params: dict,
+    talker_cfg: TalkerConfig,
+    state: DecodeState,
+    trailing: torch.Tensor,
+    *,
+    sampling: SamplingConfig,
+    st_sampling: SamplingConfig,
+    segment: int,
+    step_limit: Optional[Union[int, Sequence[int], torch.Tensor]] = None,
+) -> Tuple[DecodeState, torch.Tensor]:
+    """Resume ``state`` for up to ``segment`` frames: the streaming engine.
+    Returns (state, codes [B, segment, G]); a row's new frames are its
+    ``num_gen`` delta. ``step_limit`` (int or per row) caps each row's total
+    frames (max_new_tokens), so a partial last segment needs nothing new; by
+    default each row may take the whole segment. The KV cache (float or
+    int8 dicts), the sampling generator and the repetition history carry
+    over in ``state``."""
+    b = state.token.shape[0]
+    device = state.token.device
+    limit = _row_limit(state.num_gen + segment if step_limit is None else step_limit, b, device)
+    body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
+                       trailing, limit, state.generator)
+    return _segment_loop(body, state, segment, limit, talker_cfg.num_code_groups)
+
+
 def generate_codes(
     talker_params: dict,
     st_params: dict,
@@ -385,17 +438,13 @@ def generate_codes(
     frames below ``max_new_tokens``. ``kv_int8`` keeps the talker KV cache
     as int8 dicts."""
     b, s, _ = inputs_embeds.shape
-    device = inputs_embeds.device
-    limit = torch.as_tensor(
-        max_new_tokens if step_limit is None else step_limit,
-        dtype=torch.int32, device=device).expand(b)
-    state = init_decode(
+    limit = _row_limit(max_new_tokens if step_limit is None else step_limit, b,
+                       inputs_embeds.device)
+    state, codes = init_decode(
         talker_params, talker_cfg, inputs_embeds, pad_mask, sampling=sampling,
-        max_cache_len=s + max_new_tokens, generator=generator, kv_int8=kv_int8)
-    body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                       trailing, limit, generator)
-    state, codes = _segment_loop(body, state, max_new_tokens, limit,
-                                 talker_cfg.num_code_groups)
+        max_cache_len=s + max_new_tokens, generator=generator, kv_int8=kv_int8,
+        st_params=st_params, st_sampling=st_sampling, first_segment=max_new_tokens,
+        trailing=trailing, step_limit=limit)
     num_gen = state.num_gen
     if trim_last_on_budget:
         # max(0, …): a per-row step_limit of 0 yields an empty row.

@@ -36,7 +36,9 @@ class _Reader:
 
     def put(self, t) -> torch.Tensor:
         if isinstance(t, np.ndarray):
-            t = torch.from_numpy(np.ascontiguousarray(t))
+            # A copy: a flipped axis of length 1 (a one-tap transposed conv)
+            # passes as contiguous with a negative stride, which torch refuses.
+            t = torch.from_numpy(np.array(t, order="C"))
         return t.to(device=self.device, dtype=self.dtype, copy=True).contiguous()
 
     def vec(self, name: str) -> torch.Tensor:

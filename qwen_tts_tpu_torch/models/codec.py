@@ -11,7 +11,12 @@ of ``qwen_tts_tpu/models/codec.py``).
    residual units with dilations 1/3/9), final SnakeBeta + conv to one
    channel, clamp to [-1, 1].
 
-Channels-last ``[B, T, C]`` throughout, as in the JAX package.
+Channels-last ``[B, T, C]`` throughout, as in the JAX package. With bf16
+parameters the whole decoder runs in bf16, as the JAX codec does with bf16
+params: activations are stored bf16, convs and matmuls accumulate in f32, and
+SnakeBeta takes its polynomial sin^2 (``ops/snake.py``). The vocoder blocks
+that ``uses_vocoder_kernel`` picks then run as one fused kernel launch each
+(``ops/cuda/vocoder_block.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ import torch.nn.functional as F
 from qwen_tts_tpu_torch.config import CodecDecoderConfig
 from qwen_tts_tpu_torch.models.trunk import TrunkDims, trunk_prefill
 from qwen_tts_tpu_torch.ops.convs import causal_conv1d, causal_conv_transpose1d
+from qwen_tts_tpu_torch.ops.cuda.vocoder_block import (
+    MAX_C_IN, vocoder_block, vocoder_block_plain)
 from qwen_tts_tpu_torch.ops.norms import layer_norm, rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 from qwen_tts_tpu_torch.ops.snake import snake_beta
@@ -71,12 +78,14 @@ def _convnext_block(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + p["gamma"].to(h.dtype) * h
 
 
-def _resunit(p: dict, x: torch.Tensor, dilation: int) -> torch.Tensor:
-    h = snake_beta(x, p["alpha1"], p["beta1"])
-    h = causal_conv1d(h, p["conv1_w"], p["conv1_b"], dilation=dilation)
-    h = snake_beta(h, p["alpha2"], p["beta2"])
-    h = causal_conv1d(h, p["conv2_w"], p["conv2_b"])
-    return x + h
+def uses_vocoder_kernel(block: dict, x: torch.Tensor) -> bool:
+    """The one routing rule of the vocoder: a block goes to the fused
+    ``vocoder_block`` (the kernel for CUDA tensors, its plain version for CPU
+    ones) when its activations are bf16 and its input width is at most
+    ``MAX_C_IN`` (384) channels. At the flagship dims (1536 → 768 → 384 →
+    192 → 96) those are blocks 2 and 3; blocks 0 and 1, and every block of
+    the f32 codec, run as composed torch ops."""
+    return x.dtype == torch.bfloat16 and block["tconv_w"].shape[1] <= MAX_C_IN
 
 
 def codec_decode(params: dict, cfg: CodecDecoderConfig, codes: torch.Tensor) -> torch.Tensor:
@@ -91,10 +100,10 @@ def codec_decode(params: dict, cfg: CodecDecoderConfig, codes: torch.Tensor) -> 
 
     h = causal_conv1d(h, params["vocoder_pre_w"], params["vocoder_pre_b"])
     for block, rate in zip(params["blocks"], cfg.upsample_rates):
-        h = snake_beta(h, block["alpha"], block["beta"])
-        h = causal_conv_transpose1d(h, block["tconv_w"], block["tconv_b"], stride=rate)
-        for unit, dilation in zip(block["resunits"], (1, 3, 9)):
-            h = _resunit(unit, h, dilation)
+        if uses_vocoder_kernel(block, h):
+            h = vocoder_block(h.contiguous(), block, rate)
+        else:
+            h = vocoder_block_plain(h, block, rate)
 
     h = snake_beta(h, params["final_alpha"], params["final_beta"])
     wav = causal_conv1d(h, params["final_conv_w"], params["final_conv_b"])

@@ -9,6 +9,11 @@ PyTorch's channels-first layout around each ``F.conv1d`` call.
   makes the last window whole (0 for stride 1, every conv of the decoder).
 * ``causal_conv_transpose1d``: full transposed conv, then the causal right
   trim of ``kernel - stride`` samples, leaving ``T * stride``.
+
+Both round where the JAX package's do (``preferred_element_type=float32``):
+products sum in f32, the f32 bias is added, and the result is cast once to
+the input dtype. A bf16 input is therefore convolved as f32 (its values, and
+the bf16 weights', are exact in f32).
 """
 
 from __future__ import annotations
@@ -38,11 +43,11 @@ def causal_conv1d(
     ideal_length = (math.ceil(n_frames) - 1) * stride + (k_eff - pad_left)
     pad_right = max(ideal_length - length, 0)
 
-    xc = F.pad(x.transpose(1, 2), (pad_left, pad_right))
-    w = weight.to(x.dtype).permute(2, 1, 0)  # [C_out, C_in // groups, K]
-    out = F.conv1d(xc, w, None if bias is None else bias.to(x.dtype),
+    xc = F.pad(x.transpose(1, 2).float(), (pad_left, pad_right))
+    w = weight.to(x.dtype).float().permute(2, 1, 0)  # [C_out, C_in // groups, K]
+    out = F.conv1d(xc, w, None if bias is None else bias.float(),
                    stride=stride, dilation=dilation, groups=groups)
-    return out.transpose(1, 2)
+    return out.transpose(1, 2).to(x.dtype)
 
 
 def causal_conv_transpose1d(
@@ -58,10 +63,10 @@ def causal_conv_transpose1d(
     W_torch[i, o, K-1-j]; flipping it back gives ``F.conv_transpose1d``'s
     [C_in, C_out, K] weight."""
     k = weight.shape[0]
-    w = torch.flip(weight.to(x.dtype), dims=(0,)).permute(1, 2, 0)
-    out = F.conv_transpose1d(x.transpose(1, 2), w,
-                             None if bias is None else bias.to(x.dtype), stride=stride)
+    w = torch.flip(weight.to(x.dtype).float(), dims=(0,)).permute(1, 2, 0)
+    out = F.conv_transpose1d(x.transpose(1, 2).float(), w,
+                             None if bias is None else bias.float(), stride=stride)
     trim = k - stride
     if trim > 0:
         out = out[..., : out.shape[-1] - trim]
-    return out.transpose(1, 2)
+    return out.transpose(1, 2).to(x.dtype)

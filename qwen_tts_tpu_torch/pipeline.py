@@ -1,17 +1,20 @@
 """User-facing API (PyTorch counterpart of ``qwen_tts_tpu/pipeline.py``):
 ``Qwen3TTSModel.from_pretrained`` → ``generate_custom_voice`` /
-``generate_voice_design``, optionally after ``quantize_for_serving``.
+``generate_voice_design`` / ``stream_custom_voice``, optionally after
+``quantize_for_serving``.
 
 Tokenize → build dual-track prompts → prefill + decode loop → per-row EOS
-trim → chunked codec decode → waveforms. The model runs on one device, CUDA
-unless ``from_pretrained`` is given another.
+trim → chunked codec decode → waveforms. Streaming yields audio chunks as the
+decode loop's segments finish. The model runs on one device, CUDA unless
+``from_pretrained`` is given another; ``codec_dtype=torch.bfloat16`` runs the
+codec in bf16, its narrow vocoder blocks as fused kernels.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -22,7 +25,9 @@ from qwen_tts_tpu_torch.generate import (
     Prompt,
     batch_prompts,
     build_prompt,
+    decode_segment,
     generate_codes,
+    init_decode,
 )
 from qwen_tts_tpu_torch.io.loader import load_checkpoint
 from qwen_tts_tpu_torch.models import codec as codec_mod
@@ -38,6 +43,25 @@ _HARD_DEFAULTS = dict(
     repetition_penalty=1.05, subtalker_dosample=True, subtalker_top_k=50,
     subtalker_top_p=1.0, subtalker_temperature=0.9, max_new_tokens=2048,
 )
+
+
+def _first_packet_program(
+    talker_params: dict, st_params: dict, codec_params: dict, talker_cfg, dec_cfg,
+    embeds: torch.Tensor, mask: torch.Tensor, trailing: torch.Tensor, *,
+    sampling, st_sampling, max_cache_len: int, generator: Optional[torch.Generator],
+    first_segment: int, step_limit: int, kv_int8: bool = False,
+):
+    """Prefill + the first decode segment + the codec decode of its frames:
+    request to first audio. The JAX package fuses these into one device
+    program; eager PyTorch runs them in turn. Returns (state, codes
+    [B, first_segment, G], waveform [B, first_segment * upsample])."""
+    state, seg = init_decode(
+        talker_params, talker_cfg, embeds, mask, sampling=sampling,
+        max_cache_len=max_cache_len, generator=generator, kv_int8=kv_int8,
+        st_params=st_params, st_sampling=st_sampling, first_segment=first_segment,
+        trailing=trailing, step_limit=step_limit)
+    window = seg[:, :first_segment, : dec_cfg.num_quantizers].clamp(min=0)
+    return state, seg, codec_mod.codec_decode(codec_params, dec_cfg, window)
 
 
 class Qwen3TTSModel:
@@ -190,10 +214,12 @@ class Qwen3TTSModel:
         per_row = [codes[i, : num_gen[i]] for i in range(codes.shape[0])]
         return per_row, {"num_gen": num_gen, "stopped": out.stopped.cpu().numpy()}
 
-    def decode_codes(self, codes_list: Sequence[np.ndarray]) -> List[np.ndarray]:
+    def decode_codes(self, codes_list: Sequence[np.ndarray], *,
+                     bucket: Optional[int] = None) -> List[np.ndarray]:
         """[T_i, G] codes → waveforms, batched with -1 padding (the codec is
         causal, so right padding never changes the kept region) and trimmed to
-        each true length."""
+        each true length. ``bucket`` rounds the padded length up to a
+        multiple, which bounds the number of distinct codec shapes."""
         if self.codec_params is None:
             raise RuntimeError("codec decoder weights not loaded")
         dec_cfg = self.cfg.codec.decoder
@@ -202,6 +228,8 @@ class Qwen3TTSModel:
         if not lengths or max(lengths) == 0:
             return [np.zeros((0,), np.float32) for _ in codes_list]
         t_max = max(lengths)
+        if bucket:
+            t_max = -(-t_max // bucket) * bucket
         batch = np.full((len(codes_list), t_max, nq), -1, np.int64)
         for i, c in enumerate(codes_list):
             batch[i, : c.shape[0]] = c[:, :nq]
@@ -271,6 +299,111 @@ class Qwen3TTSModel:
         self._validate(speakers, languages)
         return self._generate(texts, speakers, languages, instructs,
                               non_streaming=non_streaming_mode, **kwargs)
+
+    def stream_custom_voice(
+        self,
+        text: str,
+        speaker: Optional[str] = None,
+        language: str = "auto",
+        *,
+        first_chunk_frames: int = 2,
+        chunk_frames: int = 25,
+        left_context_frames: int = 25,
+        **kwargs,
+    ) -> Iterator[Tuple[np.ndarray, int]]:
+        """Generator yielding (wav_chunk, sample_rate) as frames are decoded:
+        a small first segment for a low first-packet latency, then segments
+        of ``chunk_frames``. Each segment's codes go through the codec with
+        ``left_context_frames`` of re-decoded context. The KV cache and the
+        decode state stay on the device between segments."""
+        params = self._merge_params(**kwargs)
+        ids = self._tokenize(self.build_assistant_text(text))
+        prompt = build_prompt(self.talker_params, self.cfg, ids, language=language,
+                              speaker=speaker)
+        yield from self.stream_from_prompt(
+            prompt, params, first_chunk_frames=first_chunk_frames,
+            chunk_frames=chunk_frames, left_context_frames=left_context_frames)
+
+    def stream_from_prompt(
+        self,
+        prompt: Prompt,
+        params: GenerationParams,
+        *,
+        first_chunk_frames: int = 2,
+        chunk_frames: int = 25,
+        left_context_frames: int = 25,
+        ref_codes: Optional[np.ndarray] = None,
+    ) -> Iterator[Tuple[np.ndarray, int]]:
+        """Stream one prompt. ``ref_codes`` (a voice-clone reference) seed
+        the codec's code history as frames already emitted: they condition
+        the left context of every chunk, but their audio is never emitted.
+
+        Every codec window after the first packet has the fixed shape
+        ``left_context_frames + chunk_frames``, right-padded with code 0: the
+        codec is causal, so the padding never reaches the emitted region. The
+        EOS flags are read only where the stream may end (budget reached or
+        no new frame). A stream that runs out of budget drops its final
+        frame, as ``generate_codes`` does, so the stream's codes equal the
+        one-shot codes."""
+        if self.codec_params is None:
+            raise RuntimeError("codec decoder weights not loaded")
+        dec_cfg = self.cfg.codec.decoder
+        nq = dec_cfg.num_quantizers
+        up = self.cfg.codec.decode_upsample_rate
+        dtype = self.talker_params["norm"].dtype
+
+        embeds, mask, trailing, _ = batch_prompts([prompt], bucket=16)
+        trailing = trailing.to(dtype)
+        first_segment = min(first_chunk_frames, params.max_new_tokens)
+        state, seg_codes, first_wav = _first_packet_program(
+            self.talker_params, self.subtalker_params, self.codec_params,
+            self.cfg.talker, dec_cfg, embeds.to(dtype), mask, trailing,
+            sampling=params.talker_sampling(), st_sampling=params.subtalker_sampling(),
+            max_cache_len=embeds.shape[1] + params.max_new_tokens,
+            generator=torch.Generator(device=self.device).manual_seed(params.seed),
+            first_segment=first_segment, step_limit=params.max_new_tokens,
+            kv_int8=self.kv_int8,
+        )
+
+        if ref_codes is not None:
+            history = np.asarray(ref_codes, np.int64)[:, :nq]
+        else:
+            history = np.zeros((0, nq), np.int64)
+        ref_frames = history.shape[0]
+        emitted = ref_frames
+        prev_gen = 0
+        first = True
+        while True:
+            new_gen = int(state.num_gen[0])
+            seg_h = seg_codes.cpu().numpy()
+            fresh = new_gen - prev_gen
+            hit_budget = new_gen >= params.max_new_tokens
+            stopped = bool(state.eos.all()) if (hit_budget or fresh <= 0) else False
+            done = fresh <= 0 or stopped or hit_budget
+            emit = fresh
+            if done and hit_budget and not stopped:
+                emit -= 1  # the budget-exhausted final frame, as in generate_codes
+            if emit > 0:
+                history = np.concatenate([history, seg_h[0, :fresh, :nq]], axis=0)
+                if first and ref_frames == 0:
+                    wav = first_wav[0, : emit * up].cpu().numpy()
+                else:
+                    ctx = min(left_context_frames, emitted)
+                    window = np.zeros((1, left_context_frames + chunk_frames, nq), np.int64)
+                    window[0, : ctx + emit] = history[emitted - ctx : emitted + emit]
+                    wav = codec_mod.codec_decode(
+                        self.codec_params, dec_cfg, torch.as_tensor(window, device=self.device)
+                    )[0, ctx * up : (ctx + emit) * up].cpu().numpy()
+                emitted += emit
+                prev_gen = new_gen
+                yield wav, self.sample_rate
+            if done:
+                break
+            first = False
+            state, seg_codes = decode_segment(
+                self.talker_params, self.subtalker_params, self.cfg.talker, state, trailing,
+                sampling=params.talker_sampling(), st_sampling=params.subtalker_sampling(),
+                segment=chunk_frames, step_limit=params.max_new_tokens)
 
     def _validate(self, speakers, languages):
         sup_l = set(self.get_supported_languages())
