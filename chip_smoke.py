@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes (decode attention over float and int8 caches: both dtypes, ragged
    rows, with and without a window; the sub-talker micro-step: B 1/4/32,
-   both dtypes, every position, the cache rows it wrote included; the
+   both dtypes, every position, the cache rows it wrote included, two
+   launches bit-identical, timed at B=4 and B=32 with its grid barrier; the
    vocoder block: both geometries, B 1/4, ragged and sub-tile lengths, the
    stream's first packet and windows), then its time beside the plain
    version, a library yardstick where one exists and the bound (the vocoder
@@ -83,6 +84,7 @@ H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # non-tensor-core f32, same source
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, same source
 KERNEL_SOURCES = ("decode_attention", "subtalker_step", "vocoder_block")
+PORT_KERNELS = tuple(f"{n}_kernel" for n in KERNEL_SOURCES)
 # The vocoder-block kernel against its plain version, relative to the
 # largest reference value: both round at the same points, but the f32 sums
 # run in another order, so an intermediate can land one bf16 ulp (2^-8) apart
@@ -477,6 +479,8 @@ def phase_kernels_decode_attention(talker_s_max: int):
         q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len,
                                             valid_from, dtype)
         kernel_ms = _time_ms(lambda: decode_attention(q, k, v, cl, vf))
+        device_ms = _device_us(lambda: decode_attention(q, k, v, cl, vf),
+                               "decode_attention_kernel", iters=50) / 1e3
         plain_ms = _time_ms(lambda: decode_attention_plain(q, k, v, cl, vf))
         pos = torch.arange(s_max, device="cuda")
         mask = ((pos[None] < cl[:, None]) & (pos[None] >= vf[:, None]))[:, None, None, :]
@@ -494,7 +498,7 @@ def phase_kernels_decode_attention(talker_s_max: int):
             "source": "qwen_tts_tpu_torch/csrc/decode_attention.cu",
             "replaces": "qwen_tts_tpu/ops/pallas/decode_attention.py:74",
             "shape": f"{name} B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid} bf16",
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
             "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         }
@@ -541,6 +545,8 @@ def phase_kernels_int8_attention(s_max: int):
     kc, vc = _int8_caches(k, v)
     q = q.to(torch.bfloat16)
     kernel_ms = _time_ms(lambda: decode_attention_int8(q, kc, vc, cl, vf))
+    device_ms = _device_us(lambda: decode_attention_int8(q, kc, vc, cl, vf),
+                           "decode_attention_kernel", iters=50) / 1e3
     plain_ms = _time_ms(lambda: decode_attention_int8_plain(q, kc, vc, cl, vf))
     n_valid = sum(c - f for c, f in zip(cur_len, valid_from))
     # int8 K and V plus one f32 scale each per (token, head); q in, out back.
@@ -554,8 +560,8 @@ def phase_kernels_int8_attention(s_max: int):
         "replaces": "qwen_tts_tpu/ops/pallas/decode_attention.py:74",
         "shape": f"talker B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid} "
                  f"bf16 q, int8 KV",
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": max(bytes_ms, flops_ms),
+        "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+        "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
         "max_abs_err": worst,
     }
@@ -588,14 +594,118 @@ def random_subtalker_packed(gen, dtype):
     return pack_subtalker_weights(quantize_trunk_int8({k: v.to(dtype) for k, v in trunk.items()}))
 
 
-def phase_kernels_subtalker_step(groups: int = 16):
-    """subtalker_step against its plain version at the flagship sub-talker
-    dims: B 1/4/32, bf16/f32, every position of a frame, the hidden state
-    and the K/V rows each wrote. Then timed at B=4, bf16, mid-frame."""
+def subtalker_step_bound(packed, b: int, pos: int, item: int):
+    """The least time the card could take for one micro-step at batch ``b``
+    and position ``pos``: the int8 weights, scales and norms read once, x in
+    and out, the cache rows 0..pos-1 read and row pos written, against the
+    products at the bf16 tensor-core rate. Returns (bound_ms, bound_by)."""
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import KERNEL_DIMS
+
+    n_layers, d, h, kv, hd, _ = KERNEL_DIMS
+    weights = sum(packed[k].numel() for k in ("wqkv", "wo", "wgu", "down"))
+    scales = 4 * sum(packed[k].numel() for k in ("qkv_s", "wo_s", "gu_s", "down_s"))
+    norms = item * sum(packed[k].numel()
+                       for k in ("input_norm", "post_attn_norm", "q_norm", "k_norm"))
+    cache_read = 2 * n_layers * b * pos * kv * hd * item   # rows 0..pos-1 of K and V
+    cache_write = 2 * n_layers * b * kv * hd * item        # row pos of K and V
+    bytes_moved = weights + scales + norms + 2 * b * d * item + 2 * hd * 4 + cache_read \
+        + cache_write
+    flops = 2 * weights * b + 4 * n_layers * b * h * (pos + 1) * hd
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_BF16_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def subtalker_breakdown(step, launches: int):
+    """The mean of ``phase_breakdown`` over timed launches of ``step`` (a
+    micro-step closure taking ``timeline=``), rounded to 0.01 us."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
-        KERNEL_DIMS, launch_shape, subtalker_step, subtalker_step_plain)
+        TIMELINE_SLOTS, launch_shape, phase_breakdown)
+
+    timeline = torch.zeros(launch_shape(torch.bfloat16, 1)[0], TIMELINE_SLOTS,
+                           dtype=torch.int64, device="cuda")
+    step(timeline=timeline)  # warm-up
+    parts = []
+    for _ in range(launches):
+        step(timeline=timeline)
+        torch.cuda.synchronize()
+        parts.append(phase_breakdown(timeline))
+    return {k: round(sum(p[k] for p in parts) / launches, 2) for k in parts[0]}
+
+
+def time_subtalker_step(packed, b: int, gen, groups: int = 16, eps: float = 1e-6):
+    """One micro-step at batch ``b``, bf16, mid-frame (pos = groups / 2):
+    CUDA events over back-to-back launches (host launch cost included), the
+    profiler's device time of the kernel, the plain version's time and the
+    bound. Returns the row."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
+        KERNEL_DIMS, subtalker_step, subtalker_step_plain)
+    from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
+
+    n_layers, d, _, kv, hd, _ = KERNEL_DIMS
+    dtype, pos = torch.bfloat16, groups // 2
+    cos, sin = rope_cos_sin(torch.arange(groups, device="cuda"), hd, 10000.0)
+    kc, vc = (torch.randn(n_layers, b, groups, kv, hd, generator=gen, device="cuda").to(dtype)
+              for _ in range(2))
+    x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+
+    def step(timeline=None):
+        return subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps, timeline)
+
+    kernel_ms = _time_ms(step)
+    device_ms = _device_us(step, "subtalker_step_kernel", iters=20) / 1e3
+    plain_ms = _time_ms(lambda: subtalker_step_plain(packed, x, cos[pos], sin[pos], kc, vc, pos,
+                                                     eps), iters=20, warmup=3)
+    bound_ms, bound_by = subtalker_step_bound(packed, b, pos, 2)
+    row = {"B": b, "pos": pos, "groups": groups, "dtype": "bfloat16", "ms": kernel_ms,
+           "device_ms": device_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "breakdown_us": subtalker_breakdown(step, 10)}
+    log(f"kernel time: subtalker_step {json.dumps(row)}")
+    return row
+
+
+def time_grid_barrier(packed, n: int = 2000) -> float:
+    """The micro-step kernel's grid barrier alone: us per barrier, from CUDA
+    events around one cooperative launch of ``n`` barriers less one of none,
+    each the best of 5."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import barrier_bench
+
+    scratch = packed.scratch(1)
+
+    def best_ms(count):
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            barrier_bench(count, scratch)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return min(times)
+
+    best_ms(10)  # warm-up
+    return (best_ms(n) - best_ms(0)) / n * 1e3
+
+
+def phase_kernels_subtalker_step(groups: int = 16):
+    """subtalker_step against its plain version at the flagship sub-talker
+    dims: B 1/4/32, bf16/f32, every position of a frame, the hidden state
+    and the K/V rows each wrote; two launches on the same inputs give the
+    same bits. Then timed at B=4 and B=32, bf16, mid-frame, by events and by
+    the profiler's device time, beside the bound, with the cost of one grid
+    barrier."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
+        KERNEL_DIMS, launch_shape, subtalker_step, subtalker_step_rows,
+        unpack_subtalker_weights)
     from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 
     n_layers, d, h, kv, hd, inter = KERNEL_DIMS
@@ -606,6 +716,7 @@ def phase_kernels_subtalker_step(groups: int = 16):
     packs = {}
     for dtype in (torch.bfloat16, torch.float32):
         packs[dtype] = packed = random_subtalker_packed(gen, dtype)
+        rows = unpack_subtalker_weights(packed)  # the plain version's weights
         tol = STEP_TOL[str(dtype).split(".")[1]]
         for b in (1, 4, 32):
             grid, threads, smem = launch_shape(dtype, b)
@@ -618,8 +729,7 @@ def phase_kernels_subtalker_step(groups: int = 16):
                 x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
                 got, _, _ = subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps)
                 torch.cuda.synchronize()
-                want, _, _ = subtalker_step_plain(packed, x, cos[pos], sin[pos], kc_p, vc_p,
-                                                  pos, eps)
+                want, _, _ = subtalker_step_rows(rows, x, cos[pos], sin[pos], kc_p, vc_p, pos, eps)
                 for a, ref in ((got, want), (kc[:, :, pos], kc_p[:, :, pos]),
                                (vc[:, :, pos], vc_p[:, :, pos])):
                     err = (a.float() - ref.float()).abs().max().item()
@@ -630,41 +740,53 @@ def phase_kernels_subtalker_step(groups: int = 16):
                              f"version: {err} > {limit}")
             if subtalker_step.launches != before + groups:
                 fail("subtalker_step did not count its launches")
+            # Two launches on the same inputs: the same bits, output and rows.
+            pos = groups // 2
+            x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+            runs = []
+            for _ in range(2):
+                k2, v2 = kc.clone(), vc.clone()
+                out, _, _ = subtalker_step(packed, x, cos[pos], sin[pos], k2, v2, pos, eps)
+                runs.append((out, k2, v2))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, c) for a, c in zip(*runs))
             worst = max(worst, *errs)
             log(f"kernel check: subtalker_step B={b} {dtype} positions 0..{groups - 1}: "
-                f"max_abs_err={max(errs):.3g} (tol {tol} x max|ref|); cooperative launch "
+                f"max_abs_err={max(errs):.3g} (tol {tol} x max|ref|); two launches on the same "
+                f"inputs {'bit-identical' if same else 'DIFFER'}; cooperative launch "
                 f"grid {grid} x {threads} threads, {smem} B dynamic shared")
+            if not same:
+                fail(f"subtalker_step B={b} {dtype}: two launches on the same inputs differ")
+            if b == 32:  # rows do not mix: the first 4 rows alone give the same bits
+                k4, v4 = kc[:, :4].clone(), vc[:, :4].clone()
+                out4, _, _ = subtalker_step(packed, x[:4].contiguous(), cos[pos], sin[pos], k4,
+                                            v4, pos, eps)
+                torch.cuda.synchronize()
+                rows_same = all(torch.equal(a, c) for a, c in (
+                    (out4, runs[0][0][:4]), (k4, runs[0][1][:, :4]), (v4, runs[0][2][:, :4])))
+                log(f"kernel check: subtalker_step {dtype} rows 0..3 of B=32 "
+                    f"{'equal' if rows_same else 'DIFFER FROM'} the same rows at B=4")
+                if not rows_same:
+                    fail(f"subtalker_step {dtype}: B=32 rows differ from the same rows at B=4")
+        del rows
 
-    b, dtype, pos = 4, torch.bfloat16, groups // 2
-    packed = packs[dtype]
-    kc, vc = (torch.randn(n_layers, b, groups, kv, hd, generator=gen, device="cuda").to(dtype)
-              for _ in range(2))
-    x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
-    kernel_ms = _time_ms(lambda: subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps))
-    plain_ms = _time_ms(lambda: subtalker_step_plain(packed, x, cos[pos], sin[pos], kc, vc,
-                                                     pos, eps))
-    item = 2  # bf16
+    packed = packs[torch.bfloat16]
+    barrier_us = time_grid_barrier(packed)
+    log(f"kernel time: subtalker_step grid barrier {barrier_us:.3f} us each (events, "
+        f"{launch_shape(torch.bfloat16, 4)[0]} blocks)")
+    rows = {b: time_subtalker_step(packed, b, gen, groups, eps) for b in (4, 32)}
+    path = rows[4]
     weights = sum(packed[k].numel() for k in ("wqkv", "wo", "wgu", "down"))
-    scales = 4 * sum(packed[k].numel() for k in ("qkv_s", "wo_s", "gu_s", "down_s"))
-    norms = item * sum(packed[k].numel()
-                       for k in ("input_norm", "post_attn_norm", "q_norm", "k_norm"))
-    cache_read = 2 * n_layers * b * pos * kv * hd * item   # rows 0..pos-1 of K and V
-    cache_write = 2 * n_layers * b * kv * hd * item        # row pos of K and V
-    bytes_moved = weights + scales + norms + 2 * b * d * item + 2 * hd * 4 + cache_read \
-        + cache_write
-    flops = 2 * weights * b + 4 * n_layers * b * h * (pos + 1) * hd
-    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    flops_ms = flops / H100_BF16_FLOPS * 1e3
     rec = {
         "name": "subtalker_step", "route": "cuda",
         "source": "qwen_tts_tpu_torch/csrc/subtalker_step.cu",
         "replaces": "scripts/exp_pallas_subtalker_step.py:299",
-        "shape": f"flagship sub-talker B={b} pos={pos} of {groups} bf16, "
-                 f"{weights / 1e6:.2f} M int8 weights",
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": None,
-        "bound_ms": max(bytes_ms, flops_ms),
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "max_abs_err": worst,
+        "shape": f"flagship sub-talker B=4 pos={path['pos']} of {groups} bf16, "
+                 f"{weights / 1e6:.2f} M int8 weights; B=32 in 'b32'",
+        "ms": path["ms"], "kernel_ms": path["ms"], "device_ms": path["device_ms"],
+        "plain_ms": path["plain_ms"], "library_ms": None, "bound_ms": path["bound_ms"],
+        "bound_by": path["bound_by"], "max_abs_err": worst, "barrier_us": barrier_us,
+        "b32": rows[32],
     }
     log(f"kernel time: {json.dumps(rec)}")
     return rec
@@ -1004,6 +1126,10 @@ def profile_decode(model, prompts, kw, smi: str, name: str) -> None:
     for e in device[:12]:
         log(f"  {name} profile kernel: {e.self_device_time_total / 1e3:8.2f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    for e in device:  # the port's own kernels, each per launch
+        if any(k in e.key for k in PORT_KERNELS):
+            log(f"  {name} profile port kernel: {e.self_device_time_total / e.count:.2f} us "
+                f"device per launch, {e.count} launches: {e.key[:70]} | {smi}")
 
 
 def _greedy_codes(model, device, texts, speakers, kw, forced=None):

@@ -14,9 +14,9 @@ group tables and heads are stacked ``[G-1, V, D]`` / ``[G-1, D, V]``. Each
 micro-step runs the 5-layer trunk's decode step over a ``[L, B, G, KV, hd]``
 cache, so the decode-attention kernel launches ``G × L`` times per frame.
 
-The serving mode (``Qwen3TTSModel.quantize_for_serving``) stores the trunk,
-tables and heads int8 with per-channel bf16 scales and adds the trunk packed
-for ``subtalker_step`` (``params["trunk_packed"]``); each micro-step then
+The serving mode (``Qwen3TTSModel.quantize_for_serving``) stores the tables
+and heads int8 with per-channel bf16 scales and replaces the trunk with its
+int8 pack for ``subtalker_step`` (``params["trunk_packed"]``); each micro-step then
 runs the whole trunk as one ``subtalker_step``: one kernel launch per
 micro-step on the card, its plain version on the CPU.
 """

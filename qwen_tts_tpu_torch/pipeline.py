@@ -121,13 +121,13 @@ class Qwen3TTSModel:
         """int8 serving mode, in place; returns self. The sub-talker trunk,
         its stacked tables and its LM heads always go int8 (per-channel bf16
         scales); each micro-step then runs as one ``subtalker_step`` launch.
+        The trunk is kept only as that kernel's pack (``trunk_packed``).
         ``talker=True`` also makes the talker trunk int8; ``kv=True`` keeps the
         talker KV cache as int8 dicts (per-token, per-head f32 scales). Greedy
         codes are no longer those of the float model: a serving mode, not
         the parity default."""
         st = dict(self.subtalker_params)
-        st["trunk"] = quantize_trunk_int8(st["trunk"])
-        st["trunk_packed"] = pack_subtalker_weights(st["trunk"])
+        st["trunk_packed"] = pack_subtalker_weights(quantize_trunk_int8(st.pop("trunk")))
         self.subtalker_params = quantize_subtalker_tables_int8(st)
         if talker:
             self.talker_params = dict(self.talker_params)

@@ -115,6 +115,12 @@ def test_decode_attention_int8_rejects_what_it_does_not_take(device):
 
 def _random_packed(device, dtype, seed):
     """A random int8 trunk at the kernel's dims, packed."""
+    trunk = _random_trunk(device, seed)
+    return pack_subtalker_weights(quantize_trunk_int8({k: v.to(dtype) for k, v in trunk.items()}))
+
+
+def _random_trunk(device, seed):
+    """A random f32 trunk at the kernel's dims."""
     g = torch.Generator(device=device).manual_seed(seed)
     n_layers, d, h, kv, hd, inter = KERNEL_DIMS
 
@@ -130,7 +136,7 @@ def _random_packed(device, dtype, seed):
              "down": w(n_layers, inter, d), "input_norm": norm(n_layers, d),
              "post_attn_norm": norm(n_layers, d), "q_norm": norm(n_layers, hd),
              "k_norm": norm(n_layers, hd)}
-    return pack_subtalker_weights(quantize_trunk_int8({k: v.to(dtype) for k, v in trunk.items()}))
+    return trunk
 
 
 # Relative to the largest reference value. f32: summation order only,
@@ -188,6 +194,28 @@ def test_subtalker_step_rejects_what_it_does_not_take(device):
     with pytest.raises(ValueError):  # other dims than the kernel is built for
         small = {k: v[:2] for k, v in packed.items()}
         call(x, kc[:2], pk=small)
+    before = subtalker_step.launches
+    with pytest.raises(ValueError):  # a dict that pack_subtalker_weights did not make
+        call(x, kc, pk=dict(packed))
+    with pytest.raises(ValueError):  # a pack of 2 layers
+        two = {k: v[:2].bfloat16() for k, v in _random_trunk(device, 0).items()}
+        call(x, kc, pk=pack_subtalker_weights(quantize_trunk_int8(two)))
+    assert subtalker_step.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subtalker_step_two_launches_give_the_same_bits(device, dtype):
+    n_layers, d, _, kv, hd, _ = KERNEL_DIMS
+    packed = _random_packed(device, dtype, seed=7)
+    g = torch.Generator(device=device).manual_seed(8)
+    kc, vc = (torch.randn(n_layers, 4, 16, kv, hd, generator=g, device=device).to(dtype)
+              for _ in range(2))
+    x = torch.randn(4, d, generator=g, device=device).to(dtype)
+    cos, sin = rope_cos_sin(torch.arange(16, device=device), hd, 10000.0)
+    runs = [subtalker_step(packed, x, cos[9], sin[9], kc.clone(), vc.clone(), 9, 1e-6)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
 
 
 def test_quantizers_give_the_cpu_bits_on_the_card(device):

@@ -4,7 +4,8 @@ Inputs come from a numpy seed and go through the JAX function and its
 counterpart in the port: the quantizers, the int8 trunk with int8 dict KV
 caches, the int8-cache decode attention, the sub-talker micro-step (against
 the TPU kernel in interpret mode and against JAX's int8 trunk step), the
-parameter carry-over, and ``quantize_for_serving`` end to end."""
+kernel layout of its pack, the parameter carry-over, and
+``quantize_for_serving`` end to end."""
 
 import importlib.util
 import os
@@ -33,9 +34,12 @@ from qwen_tts_tpu_torch.models import trunk as t_trunk
 from qwen_tts_tpu_torch.ops import attention as t_attn
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention, decode_attention_int8
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
+    KERNEL_DIMS,
     pack_subtalker_weights,
     subtalker_step,
     subtalker_step_plain,
+    subtalker_step_rows,
+    unpack_subtalker_weights,
 )
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin as t_rope_cos_sin
 from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel as TorchModel
@@ -304,6 +308,84 @@ def test_subtalker_step_plain_matches_jax_int8_trunk_f32():
         np.testing.assert_allclose(th.numpy(), np.asarray(jh), atol=1e-4, rtol=0)
         np.testing.assert_allclose(tkc.numpy(), np.asarray(jkc), atol=1e-4, rtol=0)
         np.testing.assert_allclose(tvc.numpy(), np.asarray(jvc), atol=1e-4, rtol=0)
+
+
+# --------------------------------------------------------------------------
+# (h) the kernel layout of the pack
+# --------------------------------------------------------------------------
+
+def _int8_trunk(dims, seed, dtype=torch.bfloat16):
+    """A ``quantize_trunk_int8``-shaped tree with random int8 weights and
+    scales (no float weights to quantize, so flagship dims stay cheap)."""
+    g = torch.Generator().manual_seed(seed)
+    l, d, h, kv, hd, i = dims
+    shapes = {"wq": (d, h * hd), "wk": (d, kv * hd), "wv": (d, kv * hd), "wo": (h * hd, d),
+              "gate": (d, i), "up": (d, i), "down": (i, d)}
+    tree = {}
+    for k, (fan_in, out) in shapes.items():
+        tree[k + "_i8"] = torch.randint(-127, 128, (l, fan_in, out), generator=g,
+                                        dtype=torch.int8)
+        tree[k + "_s"] = (torch.rand(l, 1, out, generator=g) * 0.01 + 1e-3).bfloat16()
+    for k, n in (("input_norm", d), ("post_attn_norm", d), ("q_norm", hd), ("k_norm", hd)):
+        tree[k] = (1 + 0.1 * torch.randn(l, n, generator=g)).to(dtype)
+    return tree
+
+
+def _row_major(tree):
+    """The pack's weights row-major, as the kernel's first layout had them:
+    [Wq|Wk|Wv] and [gate|up] concatenated along their output columns."""
+    def cat(*keys):
+        return torch.cat([tree[k + "_i8"] for k in keys], dim=-1)
+
+    def scales(*keys):
+        return torch.cat([tree[k + "_s"] for k in keys], dim=-1).float().squeeze(1)
+
+    return {"wqkv": cat("wq", "wk", "wv"), "qkv_s": scales("wq", "wk", "wv"),
+            "wo": cat("wo"), "wo_s": scales("wo"), "wgu": cat("gate", "up"),
+            "gu_s": scales("gate", "up"), "down": cat("down"), "down_s": scales("down"),
+            **{k: tree[k] for k in ("input_norm", "post_attn_norm", "q_norm", "k_norm")}}
+
+
+def test_subtalker_pack_untiles_bit_for_bit_at_flagship_dims():
+    tree = _int8_trunk(KERNEL_DIMS, seed=11)
+    packed = pack_subtalker_weights(tree)
+    assert packed.kernel_refuses == "operands on cpu"  # flagship dims: only the device
+    # One contiguous run per (layer, block) of 128 blocks: 120 KB per block per layer.
+    per_block = {k: packed[k].shape[2] for k in ("wqkv", "wo", "wgu", "down")}
+    assert {k: packed[k].shape[:2] for k in per_block} == {k: (5, 128) for k in per_block}
+    assert per_block == {"wqkv": 32768, "wo": 16384, "wgu": 49152, "down": 24576}
+    # [gate|up]: block 0's first tile holds gate column 0 at lane 0 (k 0, 1, 8, 9).
+    np.testing.assert_array_equal(packed["wgu"][0, 0, :4].numpy(),
+                                  tree["gate_i8"][0, [0, 1, 8, 9], 0].numpy())
+    np.testing.assert_array_equal(packed["gu_s"][0, 8:16].numpy(),
+                                  tree["up_s"][0, 0, :8].float().numpy())
+    rows = unpack_subtalker_weights(packed)
+    want = _row_major(tree)
+    assert sorted(rows) == sorted(want)
+    for k, v in want.items():
+        assert rows[k].dtype == v.dtype, k
+        assert torch.equal(rows[k], v), k
+
+
+@pytest.mark.parametrize("dims", [(2, 64, 4, 2, 16, 96), (2, 32, 4, 4, 8, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subtalker_step_plain_on_the_pack_equals_row_major(dims, dtype):
+    """The plain version on the tiled pack gives the bits of the same step on
+    the row-major weights (the first layout), outputs and cache rows."""
+    tree = _int8_trunk(dims, seed=12, dtype=dtype)
+    packed = pack_subtalker_weights(tree)
+    rows = _row_major(tree)
+    l, d, _, kv, hd, _ = dims
+    r = np.random.default_rng(13)
+    b, g = 3, 4
+    caches = [torch.zeros(l, b, g, kv, hd, dtype=dtype) for _ in range(4)]
+    cos, sin = t_rope_cos_sin(torch.arange(g), hd, 10000.0)
+    for pos in range(g):
+        x = torch.tensor(r.standard_normal((b, d)), dtype=torch.float32).to(dtype)
+        got, _, _ = subtalker_step_plain(packed, x, cos[pos], sin[pos], *caches[:2], pos, 1e-6)
+        want, _, _ = subtalker_step_rows(rows, x, cos[pos], sin[pos], *caches[2:], pos, 1e-6)
+        assert torch.equal(got, want)
+    assert torch.equal(caches[0], caches[2]) and torch.equal(caches[1], caches[3])
 
 
 # --------------------------------------------------------------------------
