@@ -11,7 +11,9 @@ Phases, each of which exits non-zero on failure:
    one ``nvcc`` per source, all at once;
 3. kernels: each kernel against its plain PyTorch version at the main path's
    shapes (decode attention over float and int8 caches: both dtypes, ragged
-   rows, with and without a window; the sub-talker micro-step: B 1/4/32,
+   rows, with and without a window, and long talker caches of 2080 slots at
+   B 1/4/32 with edge rows and two launches bit-identical, timed there over
+   20 caches; the sub-talker micro-step: B 1/4/32,
    both dtypes, every position, the cache rows it wrote included, two
    launches bit-identical, timed at B=4 and B=32 with its grid barrier; the
    vocoder block: both geometries, B 1/4, ragged and sub-tile lengths, the
@@ -74,6 +76,12 @@ TEXTS = [
 # Kernel tolerance: f32 differs in summation order only; bf16 output rounds
 # to 8 mantissa bits on values of magnitude ~1.
 KERNEL_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# Decode attention over long caches, bf16: the outputs average many cache
+# rows (|out| ~ 0.04 at 2080 positions of randn), so KERNEL_TOL's absolute
+# 2e-2 alone is loose there. Each check also holds the error within this
+# share of the largest reference value: the f32 results of kernel and plain
+# version round to bf16 at most one ulp (2^-7 relative at worst) apart.
+ATTN_LONG_REL = 2 ** -7
 # The micro-step kernel against its plain version, relative to the largest
 # reference value. f32: summation order only, through 5 layers. bf16: both
 # round at the same points, but a sum in another order can move a value by
@@ -366,7 +374,7 @@ def phase_device():
     return smi
 
 
-def phase_build():
+def phase_build(sources=KERNEL_SOURCES):
     """One nvcc per source, all started together; fails if any fails."""
     from qwen_tts_tpu_torch.ops.cuda import build
 
@@ -381,16 +389,16 @@ def phase_build():
             errors[name] = e
         seconds[name] = time.perf_counter() - start
 
-    threads = [threading.Thread(target=one, args=(n,)) for n in KERNEL_SOURCES]
+    threads = [threading.Thread(target=one, args=(n,)) for n in sources]
     for t in threads:
         t.start()
     for t in threads:
         t.join()
     if errors:
         fail(f"build: {errors}")
-    log(f"build: {', '.join(f'{n}.cu {seconds[n]:.2f} s' for n in KERNEL_SOURCES)}; "
+    log(f"build: {', '.join(f'{n}.cu {seconds[n]:.2f} s' for n in sources)}; "
         f"wall {time.perf_counter() - t0:.2f} s")
-    for name in KERNEL_SOURCES:
+    for name in sources:
         for line in build.build_logs.get(name, "").splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 log(f"  ptxas {name}: {line.strip()}")
@@ -437,11 +445,203 @@ def phase_kernels(talker_s_max: int):
     return [bf16_rec, int8_rec, step_rec]
 
 
-def phase_kernels_decode_attention(talker_s_max: int):
-    """decode_attention against its plain version, then timed at the path's
-    two shapes. Returns the JSON record (talker shape, B=4, bf16)."""
+# Long talker caches: the smoke's 32-slot prefill bucket + 2048 new tokens
+# (the default max_new_tokens), timed at two lengths and two batches.
+ATTN_LONG_S_MAX = 32 + 2048
+ATTN_LONG_SHAPES = ((4, 1056), (4, 2080), (32, 1056), (32, 2080))  # (B, cur_len)
+# A long cache timed 200 times back to back would sit in the 50 MB L2; the
+# timing rotates over one cache per talker layer, as the path does.
+ATTN_ROTATE = 20
+ATTN_TALKER = (16, 2, 64)  # H, KV, hd
+# The bf16 path's profile (profile_decode: 9 steps): S_max 32 + 9, prompts of
+# 9-10 rows left-padded into the 32-slot bucket, cur_len 33..41 over the steps.
+ATTN_PROFILE_S_MAX = 41
+ATTN_PROFILE_VALID_FROM = (22, 23, 22, 22)
+
+
+def _n_split(s_max: int, b: int, kv: int):
+    """The split count the wrapper picks (None for a kernel without splits)."""
+    from qwen_tts_tpu_torch.ops.cuda import decode_attention as mod
+
+    choose = getattr(mod, "choose_split", None)
+    return choose(s_max, b * kv) if choose else None
+
+
+def _long_rows(b: int, s_max: int):
+    """(cur_len, valid_from) per row of the long-cache checks: ragged rows,
+    with rows 1..4 the edge cases (one valid position; 5 valid positions,
+    fewer than the splits; a fully masked row; the whole cache)."""
+    rows = [(s_max - 61 * i, (7 * i) % 32) for i in range(b)]
+    edges = [(1056, 1055), (40, 35), (300, 300), (s_max, 0)]
+    for i, e in enumerate(edges[: b - 1]):
+        rows[i + 1] = e
+    return [c for c, _ in rows], [f for _, f in rows]
+
+
+def _attention_bytes(b, h, kv, hd, n_valid, q_item, cache_item, scales=False):
+    """Bytes the function must move: the valid K/V rows (and their f32
+    scales), q in, the output back, cur_len and valid_from."""
+    per_row = kv * (hd * cache_item + (4 if scales else 0)) * 2
+    return n_valid * per_row + 2 * b * h * hd * q_item + 8 * b
+
+
+def _bound(bytes_moved, flops):
+    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
+    flops_ms = flops / H100_F32_FLOPS * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def _rotating(fn, runs):
+    """fn(*run) over the runs in turn, one per call."""
+    state = {"i": 0}
+
+    def call():
+        run = runs[state["i"] % len(runs)]
+        state["i"] += 1
+        return fn(*run)
+    return call
+
+
+def time_attention(kernel, plain, q, runs, vf, int8: bool, label: str):
+    """One timed shape: the kernel by CUDA events over 200 launches and by
+    profiler device time, its plain version, SDPA as the library yardstick
+    (float caches only) and the bound (mean over the runs), taking the runs
+    ``(k, v, cur_len)`` in turn."""
     import torch
     import torch.nn.functional as F
+
+    b, h, hd = q.shape
+    k0 = runs[0][0]["i8"] if int8 else runs[0][0]
+    s_max, kv = k0.shape[1], k0.shape[2]
+    call = _rotating(lambda k, v, cl: kernel(q, k, v, cl, vf), runs)
+    kernel_ms = _time_ms(call)
+    device_ms = _device_us(call, "decode_attention_kernel", iters=max(50, 2 * len(runs))) / 1e3
+    plain_ms = _time_ms(_rotating(lambda k, v, cl: plain(q, k, v, cl, vf), runs),
+                        iters=40, warmup=5)
+    library_ms = None
+    if not int8:
+        pos = torch.arange(s_max, device="cuda")
+        masked = [(k.transpose(1, 2), v.transpose(1, 2),
+                   ((pos[None] < cl[:, None]) & (pos[None] >= vf[:, None]))[:, None, None, :])
+                  for k, v, cl in runs]
+        qs = q[:, :, None, :]
+        library_ms = _time_ms(_rotating(lambda k, v, mask: F.scaled_dot_product_attention(
+            qs, k, v, attn_mask=mask, enable_gqa=True), masked))
+    vfl = vf.tolist()
+    n_valid = sum(max(0, min(c, s_max) - max(f, 0)) for _, _, cl in runs
+                  for c, f in zip(cl.tolist(), vfl)) / len(runs)
+    cache_item = 1 if int8 else k0.element_size()
+    bound_ms, bound_by = _bound(
+        _attention_bytes(b, h, kv, hd, n_valid, q.element_size(), cache_item, int8),
+        4 * n_valid * h * hd)
+    rec = {"shape": f"{label} B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid:g} "
+                    f"{'bf16 q, int8 KV' if int8 else str(q.dtype).split('.')[1]}",
+           "n_split": _n_split(s_max, b, kv), "runs": len(runs),
+           "ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"kernel time: {json.dumps(rec)}")
+    return rec
+
+
+def _hold(got, want, dtype, what: str, rel=None) -> float:
+    """got against want within KERNEL_TOL and, for bf16 with ``rel``, also
+    within rel x max|want|. Returns the largest absolute error."""
+    import torch
+
+    err = (got.float() - want.float()).abs().max().item()
+    tol = KERNEL_TOL[str(dtype).split(".")[1]]
+    limit = tol
+    note = f"tol {tol}"
+    if rel is not None and dtype == torch.bfloat16:
+        rel_limit = rel * want.float().abs().max().item()
+        limit = min(tol, rel_limit)
+        note += f" and {rel_limit:.3g} = {rel} x max|ref|"
+    log(f"kernel check: {what} {dtype}: max_abs_err={err:.3g} ({note})")
+    if not err <= limit:
+        fail(f"{what.split()[0]} disagrees with its plain version: {err} ({note})")
+    return err
+
+
+def check_long_attention(gen, int8: bool) -> float:
+    """The kernel against its plain version at S_max = ATTN_LONG_S_MAX, the
+    talker's heads, B 1/4/32, both dtypes, no window and two windows (edges
+    inside the splits), the edge rows of _long_rows, bf16 also within
+    ATTN_LONG_REL x max|ref|; then two launches must give the same bits.
+    Returns the largest error."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_int8, decode_attention_int8_plain,
+        decode_attention_plain)
+
+    kernel = decode_attention_int8 if int8 else decode_attention
+    plain = decode_attention_int8_plain if int8 else decode_attention_plain
+    name = kernel.__name__
+    h, kv, hd = ATTN_TALKER
+    s_max, worst = ATTN_LONG_S_MAX, 0.0
+    for b in (1, 4, 32):
+        cur_len, valid_from = _long_rows(b, s_max)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len, valid_from,
+                                                torch.float32 if int8 else dtype)
+            if int8:
+                k, v = _int8_caches(k, v)
+                q = q.to(dtype)
+            for window in (None, 100, 1000):
+                got = kernel(q, k, v, cl, vf, window)
+                torch.cuda.synchronize()
+                worst = max(worst, _hold(
+                    got, plain(q, k, v, cl, vf, window), dtype,
+                    f"{name} long B={b} H{h}/KV{kv} hd{hd} S_max={s_max} "
+                    f"n_split={_n_split(s_max, b, kv)} window={window} rows "
+                    f"{list(zip(cur_len, valid_from))[:5]}", rel=ATTN_LONG_REL))
+            first = kernel(q, k, v, cl, vf)
+            second = kernel(q, k, v, cl, vf)
+            torch.cuda.synchronize()
+            same = torch.equal(first, second)
+            log(f"kernel check: {name} long B={b} {dtype}: two launches "
+                f"{'give the same bits' if same else 'DIFFER'}")
+            if not same:
+                fail(f"{name}: two launches on the same inputs differ")
+    return worst
+
+
+def time_long_attention(gen, int8: bool):
+    """The long talker shapes, each over ATTN_ROTATE distinct caches."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_int8, decode_attention_int8_plain,
+        decode_attention_plain)
+
+    kernel = decode_attention_int8 if int8 else decode_attention
+    plain = decode_attention_int8_plain if int8 else decode_attention_plain
+    h, kv, hd = ATTN_TALKER
+    s_max, recs = ATTN_LONG_S_MAX, []
+    for b, length in ATTN_LONG_SHAPES:
+        q = torch.randn(b, h, hd, generator=gen, device="cuda").bfloat16()
+        cl, vf = (torch.tensor(x, dtype=torch.int32, device="cuda")
+                  for x in ([length] * b, [(7 * i) % 32 for i in range(b)]))
+        caches = []
+        for _ in range(ATTN_ROTATE):
+            k, v = (torch.randn(b, s_max, kv, hd, generator=gen, device="cuda")
+                    for _ in range(2))
+            caches.append((*(_int8_caches(k, v) if int8 else (k.bfloat16(), v.bfloat16())), cl))
+            del k, v
+        recs.append(time_attention(kernel, plain, q, caches, vf, int8, "talker long"))
+        del caches
+        torch.cuda.empty_cache()
+    return recs
+
+
+def phase_kernels_decode_attention(talker_s_max: int):
+    """decode_attention against its plain version (the path's two shapes,
+    then the long talker caches with their edge rows and a bit-identity
+    check), then timed at the path's two shapes, the bf16 path profile's
+    talker shape and the long shapes. Returns the JSON record (talker
+    shape, B=4, bf16; every timed shape under "shapes") and the largest
+    error."""
+    import torch
 
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
         decode_attention, decode_attention_plain)
@@ -460,14 +660,10 @@ def phase_kernels_decode_attention(talker_s_max: int):
                     got = decode_attention(*args, window)
                     torch.cuda.synchronize()
                     want = decode_attention_plain(*args, window)
-                    err = (got.float() - want.float()).abs().max().item()
-                    tol = KERNEL_TOL[str(dtype).split(".")[1]]
-                    worst = max(worst, err)
-                    log(f"kernel check: decode_attention {name} B={b} H{h}/KV{kv} hd{hd} "
-                        f"S_max={s_max} {dtype} window={window}: max_abs_err={err:.3g} "
-                        f"(tol {tol})")
-                    if not err <= tol:
-                        fail(f"decode_attention disagrees with its plain version: {err}")
+                    worst = max(worst, _hold(
+                        got, want, dtype, f"decode_attention {name} B={b} H{h}/KV{kv} hd{hd} "
+                        f"S_max={s_max} n_split={_n_split(s_max, b, kv)} window={window}"))
+    worst = max(worst, check_long_attention(gen, int8=False))
 
     records = {}
     for name, (h, kv, hd, s_max) in shapes.items():
@@ -478,45 +674,47 @@ def phase_kernels_decode_attention(talker_s_max: int):
         valid_from = [0, 5, 10, 20] if name == "talker" else [0] * b
         q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len,
                                             valid_from, dtype)
-        kernel_ms = _time_ms(lambda: decode_attention(q, k, v, cl, vf))
-        device_ms = _device_us(lambda: decode_attention(q, k, v, cl, vf),
-                               "decode_attention_kernel", iters=50) / 1e3
-        plain_ms = _time_ms(lambda: decode_attention_plain(q, k, v, cl, vf))
-        pos = torch.arange(s_max, device="cuda")
-        mask = ((pos[None] < cl[:, None]) & (pos[None] >= vf[:, None]))[:, None, None, :]
-        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask, enable_gqa=True))
-        n_valid = sum(c - f for c, f in zip(cur_len, valid_from))
-        itemsize = q.element_size()
-        bytes_moved = n_valid * kv * hd * 2 * itemsize + 2 * b * h * hd * itemsize + 8 * b
-        flops = 4 * n_valid * (h // kv) * kv * hd
-        bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-        flops_ms = flops / H100_F32_FLOPS * 1e3
-        rec = {
-            "name": "decode_attention", "route": "cuda",
-            "source": "qwen_tts_tpu_torch/csrc/decode_attention.cu",
-            "replaces": "qwen_tts_tpu/ops/pallas/decode_attention.py:74",
-            "shape": f"{name} B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid} bf16",
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        }
-        records[name] = rec
-        log(f"kernel time: {json.dumps(rec)}")
-    return records["talker"], worst
+        records[name] = time_attention(decode_attention, decode_attention_plain, q,
+                                       [(k, v, cl)], vf, False, name)
+    records["profile"] = time_profile_attention(gen)
+    long_recs = time_long_attention(gen, int8=False)
+    rec = dict(records["talker"], name="decode_attention", route="cuda",
+               source="qwen_tts_tpu_torch/csrc/decode_attention.cu",
+               replaces="qwen_tts_tpu/ops/pallas/decode_attention.py:74",
+               kernel_ms=records["talker"]["ms"],
+               shapes=[records["subtalker"], records["profile"], *long_recs])
+    return rec, worst
+
+
+def time_profile_attention(gen):
+    """The talker launches of the bf16 path's profile: B=4, S_max 41, the
+    profiled steps' cur_len 33..41 in turn."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_plain)
+
+    h, kv, hd = ATTN_TALKER
+    b, s_max = len(ATTN_PROFILE_VALID_FROM), ATTN_PROFILE_S_MAX
+    q, k, v, _, vf = _attention_inputs(gen, b, h, kv, hd, s_max, [s_max] * b,
+                                       list(ATTN_PROFILE_VALID_FROM), torch.bfloat16)
+    runs = [(k, v, torch.full((b,), 32 + i, dtype=torch.int32, device="cuda"))
+            for i in range(1, 10)]
+    return time_attention(decode_attention, decode_attention_plain, q, runs, vf, False,
+                          "talker profile")
 
 
 def phase_kernels_int8_attention(s_max: int):
     """decode_attention_int8 against its plain version at the talker shape
-    (the only path that runs it), then timed there."""
+    (the only path that runs it) and the long talker caches, then timed at
+    the talker shape and the long shapes."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
         decode_attention_int8, decode_attention_int8_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(2)
-    h, kv, hd = 16, 2, 64
+    h, kv, hd = ATTN_TALKER
     worst = 0.0
     for b in (1, 4):
         for dtype in (torch.bfloat16, torch.float32):
@@ -530,13 +728,10 @@ def phase_kernels_int8_attention(s_max: int):
                 got = decode_attention_int8(q, kc, vc, cl, vf, window)
                 torch.cuda.synchronize()
                 want = decode_attention_int8_plain(q, kc, vc, cl, vf, window)
-                err = (got.float() - want.float()).abs().max().item()
-                tol = KERNEL_TOL[str(dtype).split(".")[1]]
-                worst = max(worst, err)
-                log(f"kernel check: decode_attention_int8 talker B={b} H{h}/KV{kv} hd{hd} "
-                    f"S_max={s_max} {dtype} window={window}: max_abs_err={err:.3g} (tol {tol})")
-                if not err <= tol:
-                    fail(f"decode_attention_int8 disagrees with its plain version: {err}")
+                worst = max(worst, _hold(
+                    got, want, dtype, f"decode_attention_int8 talker B={b} H{h}/KV{kv} hd{hd} "
+                    f"S_max={s_max} n_split={_n_split(s_max, b, kv)} window={window}"))
+    worst = max(worst, check_long_attention(gen, int8=True))
 
     b = 4
     cur_len, valid_from = [65] * b, [0, 5, 10, 20]
@@ -544,28 +739,13 @@ def phase_kernels_int8_attention(s_max: int):
                                         torch.float32)
     kc, vc = _int8_caches(k, v)
     q = q.to(torch.bfloat16)
-    kernel_ms = _time_ms(lambda: decode_attention_int8(q, kc, vc, cl, vf))
-    device_ms = _device_us(lambda: decode_attention_int8(q, kc, vc, cl, vf),
-                           "decode_attention_kernel", iters=50) / 1e3
-    plain_ms = _time_ms(lambda: decode_attention_int8_plain(q, kc, vc, cl, vf))
-    n_valid = sum(c - f for c, f in zip(cur_len, valid_from))
-    # int8 K and V plus one f32 scale each per (token, head); q in, out back.
-    bytes_moved = n_valid * kv * 2 * (hd + 4) + 2 * b * h * hd * 2 + 8 * b
-    flops = 4 * n_valid * h * hd
-    bytes_ms = bytes_moved / H100_BYTES_PER_S * 1e3
-    flops_ms = flops / H100_F32_FLOPS * 1e3
-    rec = {
-        "name": "decode_attention_int8", "route": "cuda",
-        "source": "qwen_tts_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "qwen_tts_tpu/ops/pallas/decode_attention.py:74",
-        "shape": f"talker B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid} "
-                 f"bf16 q, int8 KV",
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
-        "library_ms": None, "bound_ms": max(bytes_ms, flops_ms),
-        "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-        "max_abs_err": worst,
-    }
-    log(f"kernel time: {json.dumps(rec)}")
+    talker = time_attention(decode_attention_int8, decode_attention_int8_plain, q,
+                            [(kc, vc, cl)], vf, True, "talker")
+    rec = dict(talker, name="decode_attention_int8", route="cuda",
+               source="qwen_tts_tpu_torch/csrc/decode_attention.cu",
+               replaces="qwen_tts_tpu/ops/pallas/decode_attention.py:74",
+               kernel_ms=talker["ms"], max_abs_err=worst,
+               shapes=time_long_attention(gen, int8=True))
     return rec
 
 
@@ -1015,6 +1195,18 @@ def _counters():
             "subtalker_step": subtalker_step, "vocoder_block": vocoder_block}
 
 
+def _attention_splits():
+    """Clear the attention wrappers' launch counts by n_split; returns a
+    function that reads them."""
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_int8)
+
+    for fn in (decode_attention, decode_attention_int8):
+        fn.splits.clear()
+    return lambda: {fn.__name__: dict(sorted(fn.splits.items()))
+                    for fn in (decode_attention, decode_attention_int8) if fn.splits}
+
+
 def phase_path(model_dir: str, smi: str, serving: bool = False):
     """``generate_custom_voice`` at the flagship dims, bf16 talker (phase 4)
     or, with ``serving``, after ``quantize_for_serving(talker=True, kv=True)``
@@ -1045,11 +1237,15 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     counters = _counters()
     for fn in counters.values():
         fn.launches = 0
+    attention = _attention_splits()
     t0 = time.perf_counter()
     wavs, sr = model.generate_custom_voice(TEXTS, speakers, languages, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    log(f"{name}: decode-attention launches by n_split {attention()} (the talker's "
+        f"{MAX_NEW} x {model.cfg.talker.num_hidden_layers} over S_max = prompt bucket + "
+        f"{MAX_NEW}; the sub-talker's over 16-17 slots)")
     if serving:
         expected = {"decode_attention": 0, "decode_attention_int8": MAX_NEW * talker_layers,
                     "subtalker_step": MAX_NEW * g, "vocoder_block": 0}
@@ -1216,7 +1412,9 @@ def phase_parity(model_dir: str, mode: str = "float"):
             model.quantize_for_serving(talker=True, kv=mode == "int8+kv")
         model.tokenizer = ChatTemplateTokenizer()
         models[device] = model
+    splits = _attention_splits()
     a, card_calls, card_cache = _greedy_codes(models["cuda"], "cuda", texts, speakers, kw)
+    log(f"{name}: decode-attention launches on the card by n_split {splits()}")
     b, cpu_calls, _ = _greedy_codes(models["cpu"], "cpu", texts, speakers, kw)
     _, forced_calls, cpu_cache = _greedy_codes(models["cpu"], "cpu", texts, speakers, kw,
                                                forced=card_calls)

@@ -13,6 +13,8 @@ from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8
 from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
 from qwen_tts_tpu_torch.ops.attention import quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+    NO_WINDOW,
+    _kernel_fn,
     decode_attention,
     decode_attention_int8,
     decode_attention_int8_plain,
@@ -35,6 +37,15 @@ pytestmark = pytest.mark.cuda
 # f32: summation order only. bf16: the output rounds to bf16 (8 bits of
 # mantissa) on values of magnitude ~1, so a couple of ulps.
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+# Decode attention over long caches averages many rows (|out| ~ 0.04), so
+# bf16 is also held within one bf16 ulp of the largest reference value.
+LONG_REL = 2 ** -7
+
+
+def _assert_long_close(got, want, dtype, s_max):
+    if dtype == torch.bfloat16 and s_max >= 1000:
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= LONG_REL * want.float().abs().max().item(), err
 
 
 @pytest.fixture
@@ -44,24 +55,38 @@ def device():
     return torch.device("cuda")
 
 
+# (heads, kv, hd, s_max): the path's talker and sub-talker caches, other
+# group counts, and long talker caches (S_max 2080 = a 32-slot prefill bucket
+# + 2048 new tokens) split over up to 16 blocks per (row, KV head).
+ATTENTION_SHAPES = [(16, 2, 64, 97), (16, 8, 128, 16), (8, 8, 64, 40), (16, 1, 128, 33),
+                    (16, 2, 64, 2080), (16, 8, 128, 2080), (16, 1, 128, 1000)]
+
+
+def _rows(s_max, device):
+    """cur_len / valid_from of 4 rows: the whole cache, one position, half the
+    cache from a ragged start, and an empty row (uniform over S_max)."""
+    cur_len = torch.tensor([s_max, 1, s_max // 2, 3], dtype=torch.int32, device=device)
+    valid_from = torch.tensor([0, 0, 2, 3], dtype=torch.int32, device=device)
+    return cur_len, valid_from
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window", [None, 9])
-@pytest.mark.parametrize("heads,kv,hd,s_max", [(16, 2, 64, 97), (16, 8, 128, 16),
-                                               (8, 8, 64, 40), (16, 1, 128, 33)])
+@pytest.mark.parametrize("window", [None, 9, 700])
+@pytest.mark.parametrize("heads,kv,hd,s_max", ATTENTION_SHAPES)
 def test_decode_attention_kernel_matches_plain(device, heads, kv, hd, s_max, window, dtype):
     g = torch.Generator(device=device).manual_seed(0)
     b = 4
     q = torch.randn(b, heads, hd, generator=g, device=device).to(dtype)
     k = torch.randn(b, s_max, kv, hd, generator=g, device=device).to(dtype)
     v = torch.randn(b, s_max, kv, hd, generator=g, device=device).to(dtype)
-    cur_len = torch.tensor([s_max, 1, s_max // 2, 3], dtype=torch.int32, device=device)
-    valid_from = torch.tensor([0, 0, 2, 3], dtype=torch.int32, device=device)  # row 3 empty
+    cur_len, valid_from = _rows(s_max, device)
     before = decode_attention.launches
     got = decode_attention(q, k, v, cur_len, valid_from, window)
     torch.cuda.synchronize()
     assert decode_attention.launches == before + 1
     want = decode_attention_plain(q, k, v, cur_len, valid_from, window)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    _assert_long_close(got, want, dtype, s_max)
 
 
 def test_decode_attention_rejects_what_it_does_not_take(device):
@@ -73,22 +98,36 @@ def test_decode_attention_rejects_what_it_does_not_take(device):
     with pytest.raises(TypeError):
         decode_attention(q[..., :64].half().contiguous(), k[..., :64].half().contiguous(),
                          k[..., :64].half().contiguous(), lens, lens * 0)
+    shifted = torch.zeros(1 + 8 * 2 * 64, device=device)[1:].view(1, 8, 2, 64)  # 4 B off
+    with pytest.raises(ValueError):
+        decode_attention(q[..., :64].contiguous(), shifted, shifted, lens, lens * 0)
+    q_shifted = torch.zeros(1 + 16 * 64, device=device)[1:].view(1, 16, 64)  # contiguous, 4 B off
+    with pytest.raises(ValueError):
+        decode_attention(q_shifted, k[..., :64].contiguous(), k[..., :64].contiguous(), lens,
+                         lens * 0)
+    # The C entry itself takes only powers of two up to 16 for n_split: the
+    # merge's shuffle tree would mix the queries' lanes at 3.
+    q64, k64, zero = q[..., :64].contiguous(), k[..., :64].contiguous(), lens * 0
+    out = torch.empty_like(q64)
+    for n_split, want in ((3, 1), (6, 1), (32, 1), (2, 0)):  # 1 = cudaErrorInvalidValue
+        err = _kernel_fn("qtts_decode_attention", 6)(
+            q64.data_ptr(), k64.data_ptr(), k64.data_ptr(), lens.data_ptr(), zero.data_ptr(),
+            out.data_ptr(), 0, 1, 16, 2, 64, 8, NO_WINDOW, n_split, 0.125,
+            torch.cuda.current_stream().cuda_stream)
+        assert err == want, (n_split, err)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("window", [None, 9])
-@pytest.mark.parametrize("heads,kv,hd,s_max", [(16, 2, 64, 97), (16, 8, 128, 16),
-                                               (8, 8, 64, 40), (16, 1, 128, 33)])
+@pytest.mark.parametrize("window", [None, 9, 700])
+@pytest.mark.parametrize("heads,kv,hd,s_max", ATTENTION_SHAPES)
 def test_decode_attention_int8_kernel_matches_plain(device, heads, kv, hd, s_max, window,
                                                     dtype):
     g = torch.Generator(device=device).manual_seed(1)
     b = 4
     q = torch.randn(b, heads, hd, generator=g, device=device).to(dtype)
-    k_cache, v_cache = ({"i8": i8, "s": s} for i8, s in (
-        quantize_kv(torch.randn(b, s_max, kv, hd, generator=g, device=device) * 3)
-        for _ in range(2)))
-    cur_len = torch.tensor([s_max, 1, s_max // 2, 3], dtype=torch.int32, device=device)
-    valid_from = torch.tensor([0, 0, 2, 3], dtype=torch.int32, device=device)  # row 3 empty
+    k_cache, v_cache = _int8_pair(g, b, s_max, kv, hd, device)
+    cur_len, valid_from = _rows(s_max, device)
     before = (decode_attention.launches, decode_attention_int8.launches)
     got = decode_attention(q, k_cache, v_cache, cur_len, valid_from, window)  # dict: int8 kernel
     torch.cuda.synchronize()
@@ -96,6 +135,36 @@ def test_decode_attention_int8_kernel_matches_plain(device, heads, kv, hd, s_max
         before[0], before[1] + 1)
     want = decode_attention_int8_plain(q, k_cache, v_cache, cur_len, valid_from, window)
     torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype], rtol=0)
+    _assert_long_close(got, want, dtype, s_max)
+
+
+def _int8_pair(g, b, s_max, kv, hd, device):
+    return tuple({"i8": i8, "s": s} for i8, s in (
+        quantize_kv(torch.randn(b, s_max, kv, hd, generator=g, device=device) * 3)
+        for _ in range(2)))
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("batch", [4, 32])
+def test_decode_attention_two_launches_give_the_same_bits(device, batch, int8):
+    """The splits merge in rank order inside the launch: no atomics, so the
+    bits cannot depend on which block finishes first."""
+    g = torch.Generator(device=device).manual_seed(2)
+    s_max, kv, hd = 2080, 2, 64
+    q = torch.randn(batch, 16, hd, generator=g, device=device).bfloat16()
+    if int8:
+        k, v = _int8_pair(g, batch, s_max, kv, hd, device)
+    else:
+        k, v = (torch.randn(batch, s_max, kv, hd, generator=g, device=device).bfloat16()
+                for _ in range(2))
+    cur_len = torch.tensor([s_max - 61 * i for i in range(batch)], dtype=torch.int32,
+                           device=device)
+    valid_from = torch.tensor([(7 * i) % 32 for i in range(batch)], dtype=torch.int32,
+                              device=device)
+    first = decode_attention(q, k, v, cur_len, valid_from)
+    second = decode_attention(q, k, v, cur_len, valid_from)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 def test_decode_attention_int8_rejects_what_it_does_not_take(device):
@@ -111,6 +180,9 @@ def test_decode_attention_int8_rejects_what_it_does_not_take(device):
         i8_96 = torch.zeros(1, 8, 2, 96, dtype=torch.int8, device=device)
         decode_attention_int8(torch.zeros(1, 16, 96, device=device), {"i8": i8_96, "s": s},
                               {"i8": i8_96, "s": s}, lens, lens * 0)
+    q_shifted = torch.zeros(1 + 16 * 64, device=device)[1:].view(1, 16, 64)  # 4 B off
+    with pytest.raises(ValueError):
+        decode_attention_int8(q_shifted, {"i8": i8, "s": s}, {"i8": i8, "s": s}, lens, lens * 0)
 
 
 def _random_packed(device, dtype, seed):
