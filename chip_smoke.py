@@ -16,10 +16,17 @@ Phases, each of which exits non-zero on failure:
    20 caches; the sub-talker micro-step: B 1/4/32,
    both dtypes, every position, the cache rows it wrote included, two
    launches bit-identical, timed at B=4 and B=32 with its grid barrier; the
-   vocoder block: both geometries, B 1/4, ragged and sub-tile lengths, the
-   stream's first packet and windows), then its time beside the plain
-   version, a library yardstick where one exists and the bound (the vocoder
-   block is held against its plain version at its timed shapes too);
+   vocoder block: both geometries, B 1/4, lengths one row under, at and over
+   a tile and of several tiles, the stream's first packet and windows; the
+   int8-weight GEMM: the talker's projections and the LM head, M 1/4/32/128,
+   both dtypes), then its time beside the plain version, a library
+   yardstick where one exists and the bound (the vocoder block is held
+   against its plain version, and two launches against each other, at its
+   timed shapes too; its bound counts the SnakeBeta instructions of the
+   built kernel's SASS beside bytes and tensor-core operations);
+3b. batch invariance: a row's bits alone and among others, on the card:
+   decode attention (both caches; B 1/4/32; S_max 97 and 2080; moved by
+   left padding), the micro-step (B 1/4/32) and the int8 GEMM (M 1/4/32);
 4. path: writes a random-weight checkpoint at the flagship 12 Hz dims,
    loads it with ``Qwen3TTSModel.from_pretrained`` and runs
    ``generate_custom_voice`` for a batch of 4 (talker bf16, codec f32,
@@ -30,7 +37,10 @@ Phases, each of which exits non-zero on failure:
 6. serving: the same checkpoint and texts after
    ``quantize_for_serving(talker=True, kv=True)``; the micro-step kernel must
    launch exactly frames x groups times, the int8-cache attention frames x
-   talker layers times, the float-cache attention not at all;
+   talker layers times, the int8 GEMM (prefill + frames) x talker layers x 7
+   + frames x 15 LM heads, the float-cache attention not at all; no int8
+   weight may be cast whole; each text's greedy codes alone against its row
+   of the batch of 4 (reported as rows equal / 4);
 7. serving parity: phase 5 with int8 weights (``quantize_for_serving(
    talker=True)``, codes equal), then with the int8 KV cache as well
    (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``);
@@ -39,7 +49,7 @@ Phases, each of which exits non-zero on failure:
    must launch twice per codec call (blocks 2 and 3) and the whole decode,
    before the clamp, must lie within ``BF16_CODEC_REL_L2`` of the same decode
    with the block's plain version; the f32 codec of phase 4 launches it not
-   at all;
+   at all; the bf16 and f32 codecs' decode walls, five calls each;
 9. streaming: ``stream_custom_voice`` (bf16 talker, bf16 codec, B=1, greedy,
    EOS banned): first-packet latency, each chunk's wall time, the RTF; the
    chunks must hold frames x 1920 samples, the kernels must launch exactly as
@@ -57,6 +67,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -91,7 +102,7 @@ STEP_TOL = {"float32": 1e-4, "bfloat16": 2 ** -5}
 H100_BYTES_PER_S = 3.35e12     # HBM3, NVIDIA H100 SXM data sheet
 H100_F32_FLOPS = 67e12         # non-tensor-core f32, same source
 H100_BF16_FLOPS = 989e12       # dense bf16 tensor cores, same source
-KERNEL_SOURCES = ("decode_attention", "subtalker_step", "vocoder_block")
+KERNEL_SOURCES = ("decode_attention", "subtalker_step", "vocoder_block", "int8_matmul")
 PORT_KERNELS = tuple(f"{n}_kernel" for n in KERNEL_SOURCES)
 # The vocoder-block kernel against its plain version, relative to the
 # largest reference value: both round at the same points, but the f32 sums
@@ -108,6 +119,9 @@ BF16_CODEC_REL_L2 = 0.03
 # The stream's schedule: a 2-frame first packet, then 25-frame chunks, each
 # decoded in a window with 25 frames of left context.
 STREAM_FIRST, STREAM_CHUNK, STREAM_CONTEXT = 2, 25, 25
+# The codec windows of a B=1 stream: its first packet, the second (the first
+# packet's frames as context), and every later one.
+STREAM_FRAMES = (STREAM_FIRST, STREAM_FIRST + STREAM_CHUNK, STREAM_CONTEXT + STREAM_CHUNK)
 
 
 def log(msg: str) -> None:
@@ -459,12 +473,11 @@ ATTN_PROFILE_S_MAX = 41
 ATTN_PROFILE_VALID_FROM = (22, 23, 22, 22)
 
 
-def _n_split(s_max: int, b: int, kv: int):
-    """The split count the wrapper picks (None for a kernel without splits)."""
-    from qwen_tts_tpu_torch.ops.cuda import decode_attention as mod
+def _n_split(s_max: int):
+    """The split count the wrapper picks for a cache of ``s_max`` slots."""
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import choose_split
 
-    choose = getattr(mod, "choose_split", None)
-    return choose(s_max, b * kv) if choose else None
+    return choose_split(s_max)
 
 
 def _long_rows(b: int, s_max: int):
@@ -536,7 +549,7 @@ def time_attention(kernel, plain, q, runs, vf, int8: bool, label: str):
         4 * n_valid * h * hd)
     rec = {"shape": f"{label} B={b} H{h}/KV{kv} hd{hd} S_max={s_max} n_valid={n_valid:g} "
                     f"{'bf16 q, int8 KV' if int8 else str(q.dtype).split('.')[1]}",
-           "n_split": _n_split(s_max, b, kv), "runs": len(runs),
+           "n_split": _n_split(s_max), "runs": len(runs),
            "ms": kernel_ms, "device_ms": device_ms, "plain_ms": plain_ms,
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by}
     log(f"kernel time: {json.dumps(rec)}")
@@ -593,7 +606,7 @@ def check_long_attention(gen, int8: bool) -> float:
                 worst = max(worst, _hold(
                     got, plain(q, k, v, cl, vf, window), dtype,
                     f"{name} long B={b} H{h}/KV{kv} hd{hd} S_max={s_max} "
-                    f"n_split={_n_split(s_max, b, kv)} window={window} rows "
+                    f"n_split={_n_split(s_max)} window={window} rows "
                     f"{list(zip(cur_len, valid_from))[:5]}", rel=ATTN_LONG_REL))
             first = kernel(q, k, v, cl, vf)
             second = kernel(q, k, v, cl, vf)
@@ -662,7 +675,7 @@ def phase_kernels_decode_attention(talker_s_max: int):
                     want = decode_attention_plain(*args, window)
                     worst = max(worst, _hold(
                         got, want, dtype, f"decode_attention {name} B={b} H{h}/KV{kv} hd{hd} "
-                        f"S_max={s_max} n_split={_n_split(s_max, b, kv)} window={window}"))
+                        f"S_max={s_max} n_split={_n_split(s_max)} window={window}"))
     worst = max(worst, check_long_attention(gen, int8=False))
 
     records = {}
@@ -730,7 +743,7 @@ def phase_kernels_int8_attention(s_max: int):
                 want = decode_attention_int8_plain(q, kc, vc, cl, vf, window)
                 worst = max(worst, _hold(
                     got, want, dtype, f"decode_attention_int8 talker B={b} H{h}/KV{kv} hd{hd} "
-                    f"S_max={s_max} n_split={_n_split(s_max, b, kv)} window={window}"))
+                    f"S_max={s_max} n_split={_n_split(s_max)} window={window}"))
     worst = max(worst, check_long_attention(gen, int8=True))
 
     b = 4
@@ -984,23 +997,61 @@ VOCODER_BATCH = 32
 CODEC_RESUNIT_TAPS = 7
 
 
-def vocoder_block_bound(b: int, t_in: int, c_in: int, c_out: int, rate: int, taps: int):
+def snake_instructions() -> int:
+    """SASS instructions of one SnakeBeta (the kernel's snake, compiled in
+    the built library): those of ``vocoder_snake_probe`` less those of
+    ``vocoder_copy_probe``, which has the same loads and store (cuobjdump
+    -sass, the code up to the first EXIT: the true division's slow path, a
+    subroutine after it that ordinary inputs never call, is not counted)."""
+    from qwen_tts_tpu_torch.ops.cuda import build
+
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path("vocoder_block")],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {}
+    for name in ("vocoder_snake_probe", "vocoder_copy_probe"):
+        body = sass[sass.index(f"Function : {name}"):]
+        body = body[:body.index(" EXIT ")]  # the straight line, not the subroutine after it
+        counts[name] = len(re.findall(r"/\*[0-9a-f]{4}\*/\s+[A-Z@!]", body))
+    return counts["vocoder_snake_probe"] - counts["vocoder_copy_probe"]
+
+
+def lane_instructions_per_s() -> float:
+    """The card's CUDA-core issue rate: SMs x 4 schedulers x 32 lanes at its
+    largest SM clock (nvidia-smi clocks.max.sm), one warp instruction per
+    scheduler per clock."""
+    import torch
+
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.split()[0])
+    return torch.cuda.get_device_properties(0).multi_processor_count * 4 * 32 * mhz * 1e6
+
+
+def vocoder_block_bound(b: int, t_in: int, c_in: int, c_out: int, rate: int, taps: int,
+                        snake_instr: int = 0, lane_rate: float = 1.0, rows: int = None):
     """The least time the card could take for one vocoder block on these
-    inputs: the bf16 input read once, the output written once, the weights
-    (bf16) and per-channel vectors (f32) read once, against the transposed
-    conv (2 taps of c_in x c_out per output row) and the 3 residual units
-    (``taps``-tap and 1x1 convs, c_out x c_out) at the bf16 tensor-core rate.
-    The SnakeBeta polynomials run beside them on the CUDA cores and are not
-    counted. Returns (bound_ms, bound_by, bytes, flops)."""
+    inputs: the largest of (1) bytes: the bf16 input read once, the output
+    written once, the weights and per-channel vectors (bf16) read once, over
+    3.35 TB/s; (2) tensor-core operations: the transposed conv (2 taps of
+    c_in x c_out per output row) and the 3 residual units (``taps``-tap and
+    1x1 convs, c_out x c_out) at the bf16 rate; (3) CUDA-core instructions:
+    the SnakeBeta passes (c_in per input row, 6 c_out per output row),
+    ``snake_instr`` lane instructions each, at ``lane_rate``. ``rows``: the
+    output rows computed (default the function's own; the kernel's warm-up
+    tiles add more). Returns (bound_ms, term, bytes, flops, snakes)."""
     t_out = t_in * rate
+    rows = b * t_out if rows is None else rows
     weights = 2 * (2 * rate * c_in * c_out + 3 * (taps + 1) * c_out * c_out)
-    vectors = 4 * (2 * c_in + 19 * c_out)
+    vectors = 2 * (2 * c_in + 19 * c_out)
     moved = 2 * b * (t_in * c_in + t_out * c_out) + weights + vectors
-    flops = 2 * b * t_out * (2 * c_in * c_out + 3 * (taps + 1) * c_out * c_out)
-    bytes_ms = moved / H100_BYTES_PER_S * 1e3
-    flops_ms = flops / H100_BF16_FLOPS * 1e3
-    return (max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations",
-            moved, flops)
+    flops = 2 * rows * (2 * c_in * c_out + 3 * (taps + 1) * c_out * c_out)
+    snakes = rows * (c_in // rate + 6 * c_out)
+    terms = {"bytes": moved / H100_BYTES_PER_S * 1e3,
+             "tensor": flops / H100_BF16_FLOPS * 1e3,
+             "cuda_core": snakes * snake_instr / lane_rate * 1e3}
+    term = max(terms, key=terms.get)
+    return terms[term], term, moved, flops, snakes, terms
 
 
 def random_vocoder_block(gen, c_in: int, c_out: int, rate: int, taps: int):
@@ -1056,33 +1107,50 @@ def vocoder_block_library(x, block: dict, rate: int):
     return h.transpose(1, 2)
 
 
-def _device_us(fn, name: str, iters: int = 5) -> float:
-    """Mean device time (us) of the kernels whose name holds ``name`` over
-    ``iters`` calls, from torch.profiler; 0.0 if it saw none."""
+def _device_us(fn, name: str, iters: int = 5, per_call: int = 1) -> float:
+    """Mean device time (us) per call of the kernels whose name holds
+    ``name`` over ``iters`` calls, from torch.profiler. Each such kernel is
+    launched ``per_call`` times a call. The profiler can miss the kernels of
+    the first calls after it starts, so it records 2 x ``iters`` calls and
+    counts each kernel's last ``iters`` x ``per_call`` launches; it fails
+    when it saw no such kernel, or fewer launches of one than that."""
+    from collections import defaultdict
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(2 * iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and name in e.key)
+    launches = defaultdict(list)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and name in e.name:
+            launches[e.name].append((e.time_range.start, e.time_range.elapsed_us()))
+    if not launches:
+        fail(f"the profiler saw no kernel named like {name!r}")
+    want = iters * per_call
+    total = 0.0
+    for kernel, runs in launches.items():
+        if len(runs) < want:
+            fail(f"the profiler saw {len(runs)} launches of {kernel[:80]}, fewer than the "
+                 f"{want} of the last {iters} calls")
+        total += sum(us for _, us in sorted(runs)[-want:])
     return total / iters
 
 
-def hold_vocoder_block(x, block: dict, rate: int, label: str) -> float:
-    """One counted launch of vocoder_block on x against vocoder_block_plain
-    on the same input, within VOCODER_TOL x max |ref|. Returns (max |err|,
-    the kernel's output)."""
+def hold_vocoder_block(x, block: dict, rate: int, label: str, split: int = 0) -> float:
+    """One counted launch of vocoder_block on x (at ``split``, 0 for the
+    plan's) against vocoder_block_plain on the same input, within
+    VOCODER_TOL x max |ref|. Returns (max |err|, the kernel's output)."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block, vocoder_block_plain
 
     before = vocoder_block.launches
-    got = vocoder_block(x, block, rate)
+    got = vocoder_block(x, block, rate, split=split)
     torch.cuda.synchronize()
     if vocoder_block.launches != before + 1:
         fail("vocoder_block did not count its launch")
@@ -1099,74 +1167,223 @@ def hold_vocoder_block(x, block: dict, rate: int, label: str) -> float:
     return err, got
 
 
-def phase_kernels_vocoder_block():
-    """vocoder_block against its plain version on the card (both geometries,
-    the codec's 7-tap residual convs and the TPU kernel's 3-tap ones, B 1/4,
-    a ragged last tile and a length shorter than one tile; the stream's first
-    packet and windows at B=1), then timed, and held against the plain
-    version again, at the TPU kernel's shapes (B=32, 128 frames; 3 and 7
-    taps) and the path's (B=4, 64 frames, 7 taps). Returns the JSON record:
-    its times are those of the two launches of one bf16 codec_decode at the
-    path's shapes."""
+def time_vocoder_readings(fn, iters: int = 10) -> dict:
+    """One kernel's time four ways (ms): CUDA events over ``iters`` launches
+    back to back; events around each launch alone, synchronised between
+    launches (median); the host clock around each launch and its
+    synchronise (median); and the profiler's device time (mean)."""
+    import torch
+
+    back_to_back = _time_ms(fn, iters=iters, warmup=2)
+    alone, host = [], []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        alone.append(start.elapsed_time(end))
+    return {"events_ms": back_to_back, "events_alone_ms": statistics.median(alone),
+            "host_ms": statistics.median(host),
+            "device_ms": _device_us(fn, "vocoder_block_kernel", iters=iters) / 1e3}
+
+
+def time_vocoder_path():
+    """The vocoder block's four readings (``time_vocoder_readings``) at the
+    path's shapes (B=4, 64 frames, 7 taps), blocks 2 and 3, on random
+    blocks from a fixed seed. It uses only ``vocoder_block``, so it times any
+    commit's kernel from that commit's tree with this script copied in."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for name, (c_in, c_out, rate, t_in_128) in VOCODER_BLOCKS.items():
+        block = random_vocoder_block(gen, c_in, c_out, rate, CODEC_RESUNIT_TAPS)
+        t_in = t_in_128 // VOCODER_FRAMES * FRAMES
+        x = (0.5 * torch.randn(4, t_in, c_in, generator=gen, device="cuda")).bfloat16()
+        row = {"block": name, "B": 4, "T_in": t_in,
+               **time_vocoder_readings(lambda: vocoder_block(x, block, rate), iters=20)}
+        log(f"vocoder path timing: {json.dumps(row)}")
+
+
+def time_vocoder_row(x, block: dict, rate: int, label: dict, iters: int, snake_instr: int,
+                     lane_rate: float, splits: bool = False) -> dict:
+    """One timed shape of vocoder_block: its four readings, the plain
+    version, the library yardstick, the three-term bound (and the same with
+    the rows the kernel computes, its warm-up tiles included), the plan, a
+    timed launch's phase shares (``timeline_breakdown``) and, with
+    ``splits``, the events' time at every column split the kernel takes."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda.vocoder_block import (
-        kernel_tile, vocoder_block, vocoder_block_plain)
+        TIMELINE_SLOTS, column_splits, kernel_plan, timeline_breakdown, vocoder_block,
+        vocoder_block_plain)
 
+    b, t_in, c_in = x.shape
+    c_out, taps = block["tconv_b"].shape[0], block["resunits"][0]["conv1_w"].shape[0]
+    readings = time_vocoder_readings(lambda: vocoder_block(x, block, rate), iters)
+    plain_ms = _time_ms(lambda: vocoder_block_plain(x, block, rate), iters=3, warmup=1)
+    library_ms = _time_ms(lambda: vocoder_block_library(x, block, rate), iters=iters, warmup=2)
+    plan = kernel_plan(c_in, c_out, rate, taps, b, t_in)
+    bound_ms, term, moved, flops, snakes, terms = vocoder_block_bound(
+        b, t_in, c_in, c_out, rate, taps, snake_instr, lane_rate)
+    computed = b * plan["tile"] * (
+        -(-t_in * rate // plan["tile"]) + (plan["segments"] - 1) * plan["warm_tiles"])
+    with_warmup = vocoder_block_bound(b, t_in, c_in, c_out, rate, taps, snake_instr, lane_rate,
+                                      rows=computed)
+    timeline = torch.zeros(b * plan["segments"] * plan["split"], TIMELINE_SLOTS,
+                           dtype=torch.int64, device="cuda")
+    vocoder_block(x, block, rate, timeline=timeline)
+    torch.cuda.synchronize()
+    row = {**label, "K": taps, "B": b, "T_in": t_in, "ms": readings["events_ms"], **readings,
+           "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_term": term, "bound_terms_ms": terms, "bound_with_warmup_ms": with_warmup[0],
+           "rows_computed_share": computed / (b * t_in * rate), "GB": moved / 1e9,
+           "GFLOP": flops / 1e9, "G_snakes": snakes / 1e9, "plan": plan,
+           "phases": timeline_breakdown(timeline)}
+    if splits:
+        row["split_ms"] = {n: _time_ms(lambda: vocoder_block(x, block, rate, split=n),
+                                       iters=iters, warmup=2)
+                           for n in column_splits(c_in, c_out)}
+    log(f"kernel time: vocoder_block {json.dumps(row)}")
+    return row
+
+
+def sweep_vocoder_plans(iters: int = 10):
+    """vocoder_block's events time at every tile and column split the kernel
+    takes, at the stream's B=1 windows and the path's shape (7 taps): the
+    data behind the plan's cost model (kFixedShare in the source). Not part
+    of main(); run it alone after phase_device() and phase_build()."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import (
+        column_splits, kernel_plan, vocoder_block)
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for b, frames in [(1, f) for f in STREAM_FRAMES] + [(4, FRAMES)]:
+        for name, (c_in, c_out, rate, t_in_128) in VOCODER_BLOCKS.items():
+            block = random_vocoder_block(gen, c_in, c_out, rate, CODEC_RESUNIT_TAPS)
+            t_in = t_in_128 // VOCODER_FRAMES * frames
+            x = (0.5 * torch.randn(b, t_in, c_in, generator=gen, device="cuda")).bfloat16()
+            chosen = kernel_plan(c_in, c_out, rate, CODEC_RESUNIT_TAPS, b, t_in)
+            times = {}
+            for tile in (48, 96, 144, 192):
+                for n in column_splits(c_in, c_out):
+                    try:
+                        plan = kernel_plan(c_in, c_out, rate, CODEC_RESUNIT_TAPS, b, t_in,
+                                           tile=tile, split=n)
+                    except RuntimeError:
+                        continue
+                    ms = _time_ms(lambda: vocoder_block(x, block, rate, tile=tile, split=n),
+                                  iters=iters if b == 1 else 3, warmup=2)
+                    times[f"{tile}/{n}"] = {"ms": ms, "segments": plan["segments"],
+                                            "seg_tiles": plan["seg_tiles"],
+                                            "warm_tiles": plan["warm_tiles"]}
+            log(f"vocoder plan sweep: {json.dumps({'block': name, 'B': b, 'frames': frames, 'chosen': chosen, 'tile/split': times})}")
+            torch.cuda.empty_cache()
+
+
+def check_vocoder_splits(x, block: dict, rate: int, label: str) -> float:
+    """vocoder_block at every column split the kernel takes, each against
+    the plain version and bit for bit against no split. Returns the largest
+    error."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import column_splits
+
+    c_in, c_out = x.shape[2], block["tconv_b"].shape[0]
+    worst, unsplit = hold_vocoder_block(x, block, rate, f"{label} split 1", split=1)
+    for n in column_splits(c_in, c_out)[1:]:
+        err, got = hold_vocoder_block(x, block, rate, f"{label} split {n}", split=n)
+        if not torch.equal(got, unsplit):
+            fail(f"vocoder_block {label}: split {n} changes the bits of split 1")
+        worst = max(worst, err)
+    log(f"kernel check: vocoder_block {label}: splits {column_splits(c_in, c_out)} give the "
+        f"bits of split 1")
+    return worst
+
+
+def phase_kernels_vocoder_block():
+    """vocoder_block against its plain version on the card (both geometries,
+    the codec's 7-tap residual convs and the TPU kernel's 3-tap ones; B 1/4;
+    a length one row under, at and over a tile, several tiles, the stream's
+    first packet and windows at B=1; every column split at the first packet
+    and one row over a tile, bit for bit against no split), then timed, and
+    held against the plain version again, at the TPU kernel's shapes (B=32,
+    128 frames; 3 and 7 taps), the path's (B=4, 64 frames, 7 taps) and the
+    stream's (B=1; 2, 27 and 50 frames), beside the three-term bound (bytes,
+    tensor-core operations, SnakeBeta instructions on the CUDA cores, whose
+    count comes from the built kernel's SASS). Returns the JSON record: its
+    times are those of the two launches of one bf16 codec_decode at the
+    path's shapes."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import kernel_plan, vocoder_block
+
+    snake_instr = snake_instructions()
+    lane_rate = lane_instructions_per_s()
+    log(f"vocoder_block bound: one SnakeBeta is {snake_instr} SASS instructions "
+        f"(cuobjdump of the built library); CUDA-core rate {lane_rate / 1e12:.2f} T lane "
+        f"instructions/s (SMs x 4 x 32 at nvidia-smi clocks.max.sm)")
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     for taps in (CODEC_RESUNIT_TAPS, 3):
         for name, (c_in, c_out, rate, t_in_128) in VOCODER_BLOCKS.items():
             block = random_vocoder_block(gen, c_in, c_out, rate, taps)
-            l_ext, halo, smem = kernel_tile(c_in, c_out, rate, taps)
-            t_tile = l_ext - halo
-            # < one tile, a ragged last tile, exactly two tiles' inputs.
-            cases = [(b, t_in) for t_in in (t_tile // rate - 5, 3 * t_tile // rate + 7,
-                                            2 * t_tile // rate) for b in (1, 4)]
-            if taps == CODEC_RESUNIT_TAPS:  # the stream's first packet and its windows
-                cases += [(1, frames * t_in_128 // VOCODER_FRAMES)
-                          for frames in (STREAM_FIRST, STREAM_CONTEXT + STREAM_CHUNK)]
+            tile = kernel_plan(c_in, c_out, rate, taps, 1, 64)["tile"]
+            # One row under, at and over a tile; several tiles; the stream's
+            # first packet and its windows.
+            cases = [(b, t_in) for t_in in (tile // rate - 1, tile // rate, tile // rate + 1,
+                                            3 * tile // rate + 7) for b in (1, 4)]
+            if taps == CODEC_RESUNIT_TAPS:
+                cases += [(1, frames * t_in_128 // VOCODER_FRAMES) for frames in STREAM_FRAMES]
             for b, t_in in cases:
+                plan = kernel_plan(c_in, c_out, rate, taps, b, t_in)
                 x = (0.5 * torch.randn(b, t_in, c_in, generator=gen, device="cuda")).bfloat16()
                 err, _ = hold_vocoder_block(
                     x, block, rate, f"{name} {c_in}->{c_out} s={rate} K={taps} B={b} "
-                    f"T_in={t_in} (T_out {t_in * rate}, tile {t_tile} + halo {halo}, "
-                    f"{smem} B shared)")
+                    f"T_in={t_in} (T_out {t_in * rate}; plan {plan})")
                 worst = max(worst, err)
+            if taps == CODEC_RESUNIT_TAPS:
+                for t_in in (tile // rate + 1, STREAM_FIRST * t_in_128 // VOCODER_FRAMES):
+                    x = (0.5 * torch.randn(1, t_in, c_in, generator=gen,
+                                           device="cuda")).bfloat16()
+                    worst = max(worst, check_vocoder_splits(
+                        x, block, rate, f"{name} K={taps} B=1 T_in={t_in}"))
     blocks = {(name, taps): random_vocoder_block(gen, c_in, c_out, rate, taps)
               for name, (c_in, c_out, rate, _) in VOCODER_BLOCKS.items()
               for taps in (3, CODEC_RESUNIT_TAPS)}
 
     rows = []
     # The TPU kernel's shapes with its own 3-tap units and with the codec's,
-    # then the path's shapes with the codec's.
-    for b, frames, taps in ((VOCODER_BATCH, VOCODER_FRAMES, 3),
-                            (VOCODER_BATCH, VOCODER_FRAMES, CODEC_RESUNIT_TAPS),
-                            (4, FRAMES, CODEC_RESUNIT_TAPS)):
+    # the path's shapes with the codec's, then the stream's codec windows.
+    shapes = ([(VOCODER_BATCH, VOCODER_FRAMES, 3), (VOCODER_BATCH, VOCODER_FRAMES,
+                                                    CODEC_RESUNIT_TAPS),
+               (4, FRAMES, CODEC_RESUNIT_TAPS)]
+              + [(1, frames, CODEC_RESUNIT_TAPS) for frames in STREAM_FRAMES])
+    for b, frames, taps in shapes:
         for name, (c_in, c_out, rate, t_in_128) in VOCODER_BLOCKS.items():
             t_in = t_in_128 // VOCODER_FRAMES * frames
             block = blocks[name, taps]
             x = (0.5 * torch.randn(b, t_in, c_in, generator=gen, device="cuda")).bfloat16()
-            iters = 5 if b == VOCODER_BATCH else 20
-            kernel_ms = _time_ms(lambda: vocoder_block(x, block, rate), iters=iters, warmup=2)
-            device_ms = _device_us(lambda: vocoder_block(x, block, rate),
-                                   "vocoder_block_kernel") / 1e3
-            plain_ms = _time_ms(lambda: vocoder_block_plain(x, block, rate), iters=3, warmup=1)
-            library_ms = _time_ms(lambda: vocoder_block_library(x, block, rate), iters=iters,
-                                  warmup=2)
-            bound_ms, bound_by, moved, flops = vocoder_block_bound(b, t_in, c_in, c_out, rate,
-                                                                   taps)
-            row = {"block": name, "K": taps, "B": b, "frames": frames, "T_in": t_in,
-                   "ms": kernel_ms,
-                   "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by,
-                   "GB": moved / 1e9, "GFLOP": flops / 1e9}
-            rows.append(row)
-            log(f"kernel time: vocoder_block {json.dumps(row)}")
+            rows.append(time_vocoder_row(
+                x, block, rate, {"block": name, "frames": frames},
+                iters=5 if b == VOCODER_BATCH else 20, snake_instr=snake_instr,
+                lane_rate=lane_rate, splits=b == 1))
             err, _ = hold_vocoder_block(x, block, rate,
                                         f"{name} K={taps} B={b} T_in={t_in} (timed shape)")
             worst = max(worst, err)
+            first = vocoder_block(x, block, rate)
+            second = vocoder_block(x, block, rate)
+            torch.cuda.synchronize()
+            if not torch.equal(first, second):
+                fail(f"vocoder_block {name} K={taps} B={b}: two launches differ")
             torch.cuda.empty_cache()
+    log("kernel check: vocoder_block: two launches give the same bits at every timed shape")
     path = [r for r in rows if r["B"] == 4]  # b2, then b3
     rec = {
         "name": "vocoder_block", "route": "cuda",
@@ -1175,24 +1392,272 @@ def phase_kernels_vocoder_block():
         "shape": f"blocks 2+3 of one bf16 codec_decode, B=4, {FRAMES} frames, 7-tap units "
                  f"(2 launches: b2 384->192 s=4 T_in {path[0]['T_in']}, b3 192->96 s=3 "
                  f"T_in {path[1]['T_in']}); per-block rows (B=4; B=32 x 128 frames with 3 "
-                 f"and 7 taps) in 'blocks'",
-        "ms": sum(r["ms"] for r in path), "plain_ms": sum(r["plain_ms"] for r in path),
+                 f"and 7 taps; B=1 stream windows of {STREAM_FRAMES} frames) in 'blocks'",
+        "ms": sum(r["ms"] for r in path), "device_ms": sum(r["device_ms"] for r in path),
+        "plain_ms": sum(r["plain_ms"] for r in path),
         "library_ms": sum(r["library_ms"] for r in path),
-        "bound_ms": sum(r["bound_ms"] for r in path), "bound_by": path[0]["bound_by"],
+        "bound_ms": sum(r["bound_ms"] for r in path),
+        "bound_by": "bytes" if all(r["bound_term"] == "bytes" for r in path) else "operations",
+        "bound_terms": [r["bound_term"] for r in path], "snake_instructions": snake_instr,
         "max_abs_err": worst, "blocks": rows,
     }
     return rec
 
 
+# The talker's int8 projections at the flagship dims, (name, K, N, per
+# layer), and the sub-talker's int8 LM head (K, N; f32 logits).
+TALKER_PROJECTIONS = (("wq", 1024, 1024), ("wk", 1024, 128), ("wv", 1024, 128),
+                      ("wo", 1024, 1024), ("gate", 1024, 2048), ("up", 1024, 2048),
+                      ("down", 2048, 1024))
+LM_HEAD = (1024, 2048)
+# bf16: the product rounds to bf16 after a sum in another order, one ulp
+# (at most 2^-7 of the largest value), times the scale; f32: order only.
+INT8_MATMUL_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
+INT8_ROTATE = 20  # one weight per talker layer, so that the bytes come from HBM
+
+
+def phase_kernels_int8_matmul():
+    """int8_matmul against its plain version (cast + cuBLAS) at the talker's
+    seven projection shapes and the LM head's, M 1/4/32/128, f32 and bf16;
+    then each timed at M=4 (a decode step of the serving path) and M=128
+    (its prefill), bf16, over 20 weights in turn, beside the byte bound and
+    the plain route's device time. Returns the JSON record (the per-step sum
+    of the talker's 140 projections at M=4)."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.trunk import quantize_int8
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    worst = 0.0
+    shapes = [(n, k, nn, False) for n, k, nn in TALKER_PROJECTIONS] + [("lm_head", *LM_HEAD, True)]
+    for name, k, n, f32_out in shapes:
+        w_i8, s = quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+        for m in (1, 4, 32, 128):
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+                before = int8_matmul.launches
+                got = int8_matmul(x, w_i8, s, f32_out)
+                torch.cuda.synchronize()
+                if int8_matmul.launches != before + 1:
+                    fail("int8_matmul did not count its launch")
+                want = int8_matmul_plain(x, w_i8, s, f32_out)
+                err = (got.float() - want.float()).abs().max().item()
+                limit = INT8_MATMUL_TOL[str(dtype).split(".")[1]] * want.float().abs().max().item()
+                log(f"kernel check: int8_matmul {name} K={k} N={n} M={m} {dtype}"
+                    f"{' f32 logits' * f32_out}: max_abs_err={err:.3g} (tol {limit:.3g})")
+                if not err <= limit or got.dtype != want.dtype:
+                    fail(f"int8_matmul {name} M={m} {dtype} disagrees with its plain version")
+                worst = max(worst, err)
+    records, step = [], {"kernel_device_ms": 0.0, "plain_device_ms": 0.0, "bound_ms": 0.0}
+    for name, k, n in TALKER_PROJECTIONS + (("lm_head", *LM_HEAD),):
+        f32_out = name == "lm_head"
+        weights = [quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+                   for _ in range(INT8_ROTATE)]
+        for m in (4, 128):
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            kernel = _rotating(lambda w, s: int8_matmul(x, w, s, f32_out), weights)
+            plain = _rotating(lambda w, s: int8_matmul_plain(x, w, s, f32_out), weights)
+            moved = k * n + 2 * n + 2 * m * k + m * n * (4 if f32_out else 2)
+            rec = {"proj": name, "K": k, "N": n, "M": m, "ms": _time_ms(kernel),
+                   "device_ms": _device_us(kernel, "int8_matmul_kernel", iters=40) / 1e3,
+                   "plain_ms": _time_ms(plain),
+                   # every kernel of the plain route: the cast, cuBLAS, the scale
+                   "plain_device_ms": _device_us(plain, "", iters=40) / 1e3,
+                   "bound_ms": moved / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+            log(f"kernel time: int8_matmul {json.dumps(rec)}")
+            records.append(rec)
+            if m == 4 and not f32_out:
+                step["kernel_device_ms"] += 20 * rec["device_ms"]
+                step["plain_device_ms"] += 20 * rec["plain_device_ms"]
+                step["bound_ms"] += 20 * rec["bound_ms"]
+        del weights
+    log(f"int8_matmul: the talker's 140 int8 projections of one decode step (20 layers x 7, "
+        f"M=4, bf16): kernel {step['kernel_device_ms']:.4f} ms device, plain cast + cuBLAS "
+        f"route {step['plain_device_ms']:.4f} ms device, byte bound {step['bound_ms']:.4f} ms")
+    if not 0 < step["kernel_device_ms"] < step["plain_device_ms"]:
+        fail("int8_matmul: the projections take longer on the card than the cast + cuBLAS "
+             "route")
+    talker = [r for r in records if r["M"] == 4 and r["proj"] != "lm_head"]
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "qwen_tts_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "qwen_tts_tpu/models/trunk.py:114 (_w_matmul, not a TPU kernel)",
+            "shape": "the talker's 140 int8 projections of one serving decode step (20 layers "
+                     "x q/k/v/o/gate/up/down, M=4, bf16); per-projection rows (M 4 and 128, "
+                     "and the sub-talker LM head) in 'projections'",
+            "ms": 20 * sum(r["ms"] for r in talker), "device_ms": step["kernel_device_ms"],
+            "plain_ms": 20 * sum(r["plain_ms"] for r in talker),
+            "plain_device_ms": step["plain_device_ms"], "library_ms": None,
+            "bound_ms": step["bound_ms"], "bound_by": "bytes", "max_abs_err": worst,
+            "projections": records}
+
+
+# Batch invariance: (B, S_max, row, left padding) placements of one row of
+# `n` positions; each must give the first one's bits.
+INVARIANT_PLACEMENTS = {
+    60: [(1, 97, 0, 0), (4, 97, 2, 30), (32, 97, 17, 5), (1, 2080, 0, 0), (4, 2080, 3, 1900),
+         (32, 2080, 31, 700)],
+    1500: [(1, 2080, 0, 0), (4, 2080, 1, 570), (32, 2080, 9, 33), (1, 1600, 0, 100)],
+}
+
+
+def phase_batch_invariance():
+    """A row's bits alone and beside other rows, bitwise, on the card:
+    decode_attention (float and int8 caches) at B 1/4/32, S_max 97 and 2080,
+    moved by left padding; subtalker_step at B 1/4/32 (f32 and bf16);
+    int8_matmul at M 1/4/32 (the talker's projection shapes, f32 and bf16)."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.trunk import quantize_int8
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
+    from qwen_tts_tpu_torch.ops.cuda.subtalker_step import KERNEL_DIMS, subtalker_step
+    from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    h, kv, hd = ATTN_TALKER
+    checks = 0
+    for int8 in (False, True):
+        for n, placements in INVARIANT_PLACEMENTS.items():
+            q_row = torch.randn(h, hd, generator=gen, device="cuda")
+            k_row, v_row = (torch.randn(n, kv, hd, generator=gen, device="cuda") * 3
+                            for _ in range(2))
+            outs = []
+            for b, s_max, row, at in placements:
+                q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, [s_max] * b,
+                                                    [0] * b, torch.float32)
+                q[row], k[row, at:at + n], v[row, at:at + n] = q_row, k_row, v_row
+                cl[row], vf[row] = at + n, at
+                k, v = _int8_caches(k, v) if int8 else (k.bfloat16(), v.bfloat16())
+                outs.append(decode_attention(q.bfloat16(), k, v, cl, vf)[row])
+            torch.cuda.synchronize()
+            same = [torch.equal(o, outs[0]) for o in outs[1:]]
+            checks += len(same)
+            log(f"batch invariance: decode_attention {'int8' if int8 else 'bf16'} cache, a row of "
+                f"{n} positions at (B, S_max, row, left pad) {placements}, n_split "
+                f"{[_n_split(s) for b, s, _, _ in placements]}: "
+                f"{'the same bits' if all(same) else f'DIFFERS {same}'}")
+            if not all(same):
+                fail("decode_attention: a row's bits depend on the rows around it")
+
+    n_layers, d, _, kv_st, hd_st, _ = KERNEL_DIMS
+    cos, sin = rope_cos_sin(torch.arange(16, device="cuda"), hd_st, 10000.0)
+    for dtype in (torch.float32, torch.bfloat16):
+        packed = random_subtalker_packed(gen, dtype)
+        x_row = torch.randn(d, generator=gen, device="cuda").to(dtype)
+        kc_row, vc_row = (torch.randn(n_layers, 16, kv_st, hd_st, generator=gen,
+                                      device="cuda").to(dtype) for _ in range(2))
+        outs = []
+        for b, row in ((1, 0), (4, 2), (32, 17)):
+            x = torch.randn(b, d, generator=gen, device="cuda").to(dtype)
+            kc, vc = (torch.randn(n_layers, b, 16, kv_st, hd_st, generator=gen,
+                                  device="cuda").to(dtype) for _ in range(2))
+            x[row], kc[:, row], vc[:, row] = x_row, kc_row, vc_row
+            out, kc, vc = subtalker_step(packed, x, cos[9], sin[9], kc, vc, 9, 1e-6)
+            outs.append((out[row], kc[:, row], vc[:, row]))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for other in outs[1:] for a, b in zip(other, outs[0]))
+        checks += 2
+        log(f"batch invariance: subtalker_step {dtype} a row at B 1/4/32 (output and the cache "
+            f"rows it wrote): {'the same bits' if same else 'DIFFER'}")
+        if not same:
+            fail("subtalker_step: a row's bits depend on the rows around it")
+
+    for name, k, n in TALKER_PROJECTIONS + (("lm_head", *LM_HEAD),):
+        w_i8, s = quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(32, k, generator=gen, device="cuda").to(dtype)
+            f32_out = name == "lm_head"
+            full = int8_matmul(x, w_i8, s, f32_out)
+            four = int8_matmul(x[:4].contiguous(), w_i8, s, f32_out)
+            one = int8_matmul(x[17:18].contiguous(), w_i8, s, f32_out)
+            torch.cuda.synchronize()
+            same = torch.equal(four, full[:4]) and torch.equal(one, full[17:18])
+            checks += 2
+            if not same:
+                fail(f"int8_matmul {name} {dtype}: a row's bits depend on M")
+    log(f"batch invariance: int8_matmul rows at M 1/4/32, the talker's 7 projections and the "
+        f"LM head, f32 and bf16: the same bits; {checks} checks in all pass")
+
+
+def check_serving_rows_alone(model, smi: str) -> None:
+    """The serving path's greedy codes for each text alone against the same
+    text in the batch of 4 (EOS banned, 16 frames): reports rows equal / 4.
+    Every op of the path takes part, the kernels and the plain PyTorch ones
+    (the talker's LM head, norms, embeddings, sampling) alike."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch.generate import build_prompt
+
+    kw = dict(do_sample=False, subtalker_dosample=False, repetition_penalty=1.0,
+              max_new_tokens=16, min_new_tokens=17)
+    speakers = ["aiden", "serena", "aiden", "serena"]
+    prompts = [build_prompt(model.talker_params, model.cfg,
+                            model._tokenize(model.build_assistant_text(t)), speaker=spk)
+               for t, spk in zip(TEXTS, speakers)]
+    params = model._merge_params(**kw)
+    both, _ = model.generate_codes_from_prompts(prompts, params)
+    equal, first = 0, []
+    for i, p in enumerate(prompts):
+        solo, _ = model.generate_codes_from_prompts([p], params)
+        same = solo[0].shape == both[i].shape and bool((solo[0] == both[i]).all())
+        equal += same
+        if not same:
+            diff = np.argwhere(solo[0] != both[i]) if solo[0].shape == both[i].shape else [[-1]]
+            first.append((i, [int(v) for v in diff[0]]))
+    log(f"serving batch invariance: greedy codes ({both[0].shape[0]} frames x "
+        f"{both[0].shape[1]} groups) of each text alone equal its row of the batch of 4 for "
+        f"{equal} / 4 rows{f'; first (row, (frame, group)) that differ: {first}' if first else ''}"
+        f" | {smi}")
+
+
+def count_int8_weight_casts(model, prompts, kw) -> int:
+    """Runs a short decode under a dispatch mode that counts the aten casts
+    of an int8 tensor of at least 128 x 1024 elements (the talker's smallest
+    projection) to a floating dtype: a whole int8 weight dequantized. (Writes
+    into the int8 KV cache copy int8 to int8 and do not count.)"""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    big = 128 * 1024
+
+    def is_weight_cast(func, args, kwargs):
+        if func is torch.ops.aten._to_copy.default:
+            src, dtype = args[0], kwargs.get("dtype")
+            return (src.dtype == torch.int8 and src.numel() >= big and dtype is not None
+                    and dtype.is_floating_point)
+        if func is torch.ops.aten.copy_.default:
+            dst, src = args[0], args[1]
+            return (isinstance(src, torch.Tensor) and src.dtype == torch.int8
+                    and src.numel() >= big and dst.dtype.is_floating_point)
+        return False
+
+    class Casts(TorchDispatchMode):
+        count = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if is_weight_cast(func, args, kwargs):
+                Casts.count += 1
+            return func(*args, **kwargs)
+
+    with Casts():
+        model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
+    return Casts.count
+
+
 def _counters():
-    """The launch counters of the four kernel wrappers."""
+    """The launch counters of the five kernel wrappers."""
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
         decode_attention, decode_attention_int8)
     from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
     from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block
 
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
+
     return {"decode_attention": decode_attention, "decode_attention_int8": decode_attention_int8,
-            "subtalker_step": subtalker_step, "vocoder_block": vocoder_block}
+            "subtalker_step": subtalker_step, "vocoder_block": vocoder_block,
+            "int8_matmul": int8_matmul}
 
 
 def _attention_splits():
@@ -1247,15 +1712,20 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
         f"{MAX_NEW} x {model.cfg.talker.num_hidden_layers} over S_max = prompt bucket + "
         f"{MAX_NEW}; the sub-talker's over 16-17 slots)")
     if serving:
+        projections = len(TALKER_PROJECTIONS)
         expected = {"decode_attention": 0, "decode_attention_int8": MAX_NEW * talker_layers,
-                    "subtalker_step": MAX_NEW * g, "vocoder_block": 0}
+                    "subtalker_step": MAX_NEW * g, "vocoder_block": 0,
+                    "int8_matmul": (1 + MAX_NEW) * talker_layers * projections
+                    + MAX_NEW * (g - 1)}
         how = (f"int8 attention {MAX_NEW} frames x {talker_layers} talker layers, "
-               f"micro-step {MAX_NEW} frames x {g} groups, float attention and the f32 "
-               f"codec's vocoder blocks 0")
+               f"micro-step {MAX_NEW} frames x {g} groups, int8 GEMM (prefill + {MAX_NEW} "
+               f"steps) x {talker_layers} layers x {projections} projections + {MAX_NEW} "
+               f"frames x {g - 1} LM heads, float attention and the f32 codec's vocoder "
+               f"blocks 0")
     else:
         per_frame = talker_layers + g * tk.code_predictor.num_hidden_layers
         expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
-                    "subtalker_step": 0, "vocoder_block": 0}
+                    "subtalker_step": 0, "vocoder_block": 0, "int8_matmul": 0}
         how = f"decode_attention {MAX_NEW} frames x {per_frame}, the others 0"
     log(f"{name}: launches {launches}, expected {expected} ({how})")
     if launches != expected:
@@ -1286,12 +1756,22 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     t0 = time.perf_counter()
     codec_wavs = model.decode_codes(codes)
     t_codec = time.perf_counter() - t0
+    codec_walls = decode_walls(model, codes)
     log(f"{name} split: decode loop {t_codes:.3f} s ({t_codes / MAX_NEW * 1e3:.2f} ms/step), "
         f"codec (f32) {t_codec:.3f} s | {smi}")
     profile_decode(model, prompts, dict(kw, max_new_tokens=9, min_new_tokens=10), smi, name)
+    if serving:
+        casts = count_int8_weight_casts(model, prompts, dict(kw, max_new_tokens=3,
+                                                             min_new_tokens=4))
+        log(f"serving: int8 weights cast whole in a 3-step decode (aten copies of int8 tensors "
+            f">= 128 x 1024 elements): {casts}")
+        if casts:
+            fail("the serving path still casts int8 weights whole")
+        check_serving_rows_alone(model, smi)
     del model
     torch.cuda.empty_cache()
-    return {"launches": launches, "codes": codes, "wavs": codec_wavs, "codec_s": t_codec}
+    return {"launches": launches, "codes": codes, "wavs": codec_wavs, "codec_s": t_codec,
+            "codec_walls": codec_walls}
 
 
 def profile_decode(model, prompts, kw, smi: str, name: str) -> None:
@@ -1467,6 +1947,21 @@ def phase_parity(model_dir: str, mode: str = "float"):
              f"{step}, max logit diff {worst:.3g}")
 
 
+def decode_walls(model, codes, runs: int = 5) -> list:
+    """Host wall seconds of ``runs`` calls of decode_codes, each ending in a
+    synchronise."""
+    import torch
+
+    walls = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.decode_codes(codes)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
 def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
     """The bf16 codec on the path phase's codes: the vocoder-block kernel
     launches twice per codec_decode call; the waveforms are finite, in
@@ -1512,7 +2007,7 @@ def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
         codec_mod.codec_decode = original
     launches = {k: fn.launches for k, fn in _counters().items()}
     expected = {"decode_attention": 0, "decode_attention_int8": 0, "subtalker_step": 0,
-                "vocoder_block": 2 * len(calls)}
+                "vocoder_block": 2 * len(calls), "int8_matmul": 0}
     log(f"codec bf16: launches {launches}, expected {expected} (2 vocoder blocks x "
         f"{len(calls)} codec_decode call(s))")
     if launches != expected or not calls:
@@ -1556,9 +2051,14 @@ def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
     if not rel <= BF16_CODEC_REL_L2:
         fail(f"bf16 codec through the kernel disagrees with the plain route: {rel}")
     audio_s = sum(want_len) / model.sample_rate
+    walls = decode_walls(model, codes)
     log(f"codec bf16: decode_codes B={len(codes)} frames={codes[0].shape[0]} wall "
         f"{wall:.4f} s (f32 codec in the path phase {path['codec_s']:.4f} s), audio "
         f"{audio_s:.2f} s | {smi}")
+    log(f"codec bf16 vs f32: decode_codes wall over {len(walls)} calls each, median (min..max): "
+        f"bf16 {statistics.median(walls):.4f} s ({min(walls):.4f}..{max(walls):.4f}), f32 "
+        f"{statistics.median(path['codec_walls']):.4f} s ({min(path['codec_walls']):.4f}.."
+        f"{max(path['codec_walls']):.4f}) | {smi}")
     del model
     torch.cuda.empty_cache()
 
@@ -1630,7 +2130,7 @@ def phase_stream(model_dir: str, smi: str):
     tk = model.cfg.talker
     per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
     expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
-                "subtalker_step": 0, "vocoder_block": 2 * len(schedule)}
+                "subtalker_step": 0, "vocoder_block": 2 * len(schedule), "int8_matmul": 0}
     gaps = np.diff([0.0] + stamps)
     audio_s = sum(c.shape[0] for c in chunks) / model.sample_rate
     log(f"stream: B=1 first_chunk {first}, chunk {chunk}, left context {ctx} frames: "
@@ -1679,6 +2179,8 @@ def main() -> int:
     prefill_bucket = 32
     records = phase_kernels(prefill_bucket + MAX_NEW)
     records.append(phase_kernels_vocoder_block())
+    records.append(phase_kernels_int8_matmul())
+    phase_batch_invariance()
     model_dir = tempfile.mkdtemp(prefix="qtts_smoke_")
     try:
         cfg = flagship_config()
@@ -1702,6 +2204,7 @@ def main() -> int:
     records[1]["launches"] = serving["launches"]["decode_attention_int8"]
     records[2]["launches"] = serving["launches"]["subtalker_step"]
     records[3]["launches"] = stream["vocoder_block"]
+    records[4]["launches"] = serving["launches"]["int8_matmul"]
     print(json.dumps({"kernels": records}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

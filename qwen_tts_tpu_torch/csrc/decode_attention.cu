@@ -27,24 +27,32 @@
 // at the chain's rate, not the card's.
 //
 // This design:
-//   * Split over positions. The grid is (split, KV head, row). The host picks
-//     n_split from what it knows (S_max and B x KV; `choose_split` in
-//     ops/cuda/decode_attention.py): enough blocks to fill the SMs at long
-//     caches, 1 for the sub-talker's 16-17 slots. Each block computes its
-//     row's valid range from cur_len / valid_from on the device and takes the
-//     share [lo + n*r/n_split, lo + n*(r+1)/n_split); each of its 4 warps
-//     takes an equal share of that. No host sync, no per-launch decision
-//     from device values.
+//   * Split over positions, in shares that follow the row alone. The grid is
+//     (split, KV head, row). A row's valid range [lo, hi) is cut into chunks
+//     of 16 positions counted from lo; chunk j goes to warp slot
+//     j mod (n_split * 4) (slot = rank * 4 + warp), which walks its chunks in
+//     order. The host picks n_split from S_max alone (`choose_split` in
+//     ops/cuda/decode_attention.py): the power of two of blocks whose warps
+//     cover ceil(S_max / 16) chunks, at most 8 (one portable cluster; at
+//     B=32 x 2080, 16 gave 1.55 waves of blocks): 1 for the
+//     sub-talker's 16-17 slots, 2 for the path's talker cache of 97, 8 from
+//     257 slots on. So a row's chunks, the warps that take them and the
+//     merge's order depend on the row (its query, valid keys and values,
+//     window) and on nothing else: not on B, not on S_max, not on where
+//     left padding puts the row in its cache. Ranks past a row's last chunk
+//     hold an empty share, weight 0, which the merge adds as exact zeros.
+//     Each block computes its row's range from cur_len / valid_from on the
+//     device: no host sync, no per-launch decision from device values.
 //   * Warps run alone. A warp streams its own positions through its own
 //     two-stage ring with cp.async (16 B a lane; the int8 scales 4 B), in
 //     chunks of 16 positions, and keeps its own online softmax: no block
 //     barrier inside the loop. Small stages leave room for five blocks (20
 //     warps) an SM, which long caches at large batches need.
-//   * Short shares skip the staging. A block whose share is at most one chunk
-//     (the sub-talker's caches, short talker ones) gives each warp at most 4
-//     positions, loaded with q straight into registers before any use, and
-//     walks them one at a time with lanes over dims; here latency, not
-//     bytes, is the cost, and this path has the fewest steps.
+//   * Short rows skip the staging. A row of at most one chunk (the
+//     sub-talker's caches, short talker rows) gives each of block 0's warps
+//     at most 4 positions, loaded with q straight into registers before any
+//     use, and walks them one at a time with lanes over dims; here latency,
+//     not bytes, is the cost, and this path has the fewest steps.
 //   * Scores on the tensor cores for bf16 queries: each chunk is one
 //     m16n8k16 m-tile (positions x queries; the talker's G = 8 is n = 8),
 //     exact bf16 (or int8 -> bf16) products with f32 sums, q^T held in
@@ -71,10 +79,11 @@
 //     cluster barrier, then each block merges its slice from its own shared
 //     memory, the ranks' weights by a fixed shuffle tree (so n_split is a
 //     power of two). No workspace, no atomics, no second launch; the bits do
-//     not depend on which block finishes first. They do depend on n_split,
-//     which follows S_max and B: a row's result is the same from launch to
-//     launch at one (S_max, B), but may differ in the last bit across batch
-//     sizes or cache lengths.
+//     not depend on which block finishes first. The shuffle tree over a
+//     power of two of ranks, with every rank past the data empty, adds the
+//     same sums in the same pairs at any n_split that covers the row's
+//     chunks, so a row's bits are those of the row alone: the same at B 1
+//     and 32, at S_max 97 and 2080, shifted or not.
 // A fully masked row keeps the reference semantics: every score is the -1e9
 // fill over all of S_max, so the softmax is uniform over S_max.
 //
@@ -95,7 +104,7 @@ namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kMaxSplit = 16;  // the largest (non-portable) cluster
+constexpr int kMaxSplit = 8;  // the largest portable cluster
 constexpr float kMaskedScore = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -459,16 +468,23 @@ __global__ void __launch_bounds__(kThreads, (Layout<T, C, HD, G>::kMinBlocks))
   const bool empty = lo >= hi_valid;
   const int hi = empty ? s_max : hi_valid;
   if (empty) lo = 0;
-  const long long n = hi - lo;
-  const int b_lo = lo + (int)(n * rank / n_split);
-  const long long nb = lo + (int)(n * (rank + 1) / n_split) - b_lo;
-  const int w_lo = b_lo + (int)(nb * warp / kWarps);
-  const int w_hi = b_lo + (int)(nb * (warp + 1) / kWarps);
-  const int n_chunks = (w_hi - w_lo + kP - 1) / kP;
-  // A share of one chunk or less (the sub-talker's caches, short talker
-  // ones) takes the short path: at most kP / kWarps positions a warp, loaded
-  // straight into registers, no staging and no barrier before the merge.
-  const bool tiny = nb <= kP;
+  const int n = hi - lo;
+  // A row of one chunk or less (the sub-talker's caches, short talker rows)
+  // takes the short path: block 0's warps take equal shares of it, at most
+  // kP / kWarps positions a warp, loaded straight into registers, no staging
+  // and no barrier before the merge. Longer rows: chunk j of the row
+  // ([lo + j kP, lo + (j + 1) kP)) goes to warp slot j mod (n_split kWarps),
+  // slot = rank kWarps + warp, which walks its chunks in order. Both follow
+  // the row alone, and n_split (from S_max) only once a row has more chunks
+  // than the largest cluster has warps; ranks past a row's last chunk are
+  // empty, and an empty share merges as exact zeros.
+  const bool tiny = n <= kP;
+  const int w_lo = lo + (tiny && rank == 0 ? n * warp / kWarps : 0);
+  const int w_hi = lo + (tiny && rank == 0 ? n * (warp + 1) / kWarps : 0);
+  const int row_chunks = (n + kP - 1) / kP;
+  const int slot = rank * kWarps + warp;
+  const int slots = n_split * kWarps;
+  const int n_chunks = tiny || slot >= row_chunks ? 0 : (row_chunks - slot + slots - 1) / slots;
   // A block may write a peer's shared memory only once the peer runs: every
   // block says so here and waits for the others before its first push.
   const bool clustered = n_split > 1;
@@ -476,8 +492,8 @@ __global__ void __launch_bounds__(kThreads, (Layout<T, C, HD, G>::kMinBlocks))
 
   auto load_chunk = [&](int t) {  // by this warp's lanes
     unsigned char* stage = ring + (t % L::kStages) * L::kStageBytes;
-    const int j0 = w_lo + t * kP;
-    const int cnt = min(kP, w_hi - j0);
+    const int j0 = lo + (slot + t * slots) * kP;
+    const int cnt = min(kP, hi - j0);
     const size_t token0 = ((size_t)b * s_max + j0) * kv_heads + kvh;
     const int c = lane % kCPR;  // the lane's 16 B chunk of each row it copies
 #pragma unroll
@@ -649,7 +665,7 @@ __global__ void __launch_bounds__(kThreads, (Layout<T, C, HD, G>::kMinBlocks))
 
       const unsigned char* stage = ring + (t % L::kStages) * L::kStageBytes;
       const float* scales = reinterpret_cast<const float*>(stage + L::kScaleOff);
-      const int cnt = min(kP, w_hi - (w_lo + t * kP));
+      const int cnt = min(kP, hi - (lo + (slot + t * slots) * kP));
 
       float sc[kMT][kNT][4];
       chunk_scores<T, C, HD, G>(stage, qs, qb, lane, sc);
@@ -969,11 +985,8 @@ cudaError_t launch(const Args& a) {
   auto kernel = decode_attention_kernel<T, C, HD, G>;
   static bool configured = false;  // per instantiation; setting twice is harmless
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(
+    const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
-    if (err == cudaSuccess) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    }
     if (err != cudaSuccess) return err;
     configured = true;
   }
@@ -1040,7 +1053,7 @@ int dispatch(int dtype, bool int8_cache, int heads, int head_dim, const Args& a)
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, out and the cache). n_split: blocks
-// per (row, KV head), a power of two up to 16 (one cluster). Returns a cudaError_t code
+// per (row, KV head), a power of two up to 8 (one cluster). Returns a cudaError_t code
 // (0 = success).
 extern "C" int qtts_decode_attention(const void* q, const void* k_cache, const void* v_cache,
                                      const void* cur_len, const void* valid_from, void* out,

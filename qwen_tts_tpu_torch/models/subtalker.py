@@ -29,6 +29,7 @@ import torch
 
 from qwen_tts_tpu_torch.config import CodePredictorConfig
 from qwen_tts_tpu_torch.models.trunk import TrunkDims, quantize_int8, trunk_decode_step
+from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
@@ -75,10 +76,10 @@ def _embed_table(params: dict, table: int, code: torch.Tensor, dtype) -> torch.T
 
 
 def _lm_head_logits(params: dict, hidden: torch.Tensor, head: int) -> torch.Tensor:
-    """f32 logits of LM head ``head`` (int8-aware)."""
+    """f32 logits of LM head ``head`` (int8-aware: the int8 GEMM)."""
     if "lm_heads_i8" in params:
-        w = params["lm_heads_i8"][head].to(hidden.dtype)
-        return (hidden @ w).float() * params["lm_heads_s"][head].float()
+        return int8_matmul(hidden, params["lm_heads_i8"][head], params["lm_heads_s"][head],
+                           f32_out=True)
     return (hidden @ params["lm_heads"][head]).float()
 
 

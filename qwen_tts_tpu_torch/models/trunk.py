@@ -15,7 +15,10 @@ and head as it is written.
 
 ``quantize_trunk_int8`` turns the projections into int8 with per-output-
 channel bf16 scales (``<key>_i8`` / ``<key>_s``); every projection then
-dequantizes at the matmul, ``(x @ w_i8) * s`` in the activation dtype.
+dequantizes at the matmul, ``(x @ w_i8) * s`` in the activation dtype,
+through the hand-written int8 GEMM (``ops/cuda/int8_matmul.py``) for CUDA
+tensors, which reads only the int8 bytes, and its plain version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.ops.attention import KVCache, attention_prefill, int8_scale, quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import apply_rope
 
@@ -73,7 +77,7 @@ def quantize_trunk_int8(params: dict) -> dict:
 def _w_matmul(layer: dict, key: str, x: torch.Tensor) -> torch.Tensor:
     """x @ W, dequantizing an int8 weight in the activation dtype."""
     if key + "_i8" in layer:
-        return (x @ layer[key + "_i8"].to(x.dtype)) * layer[key + "_s"].to(x.dtype)
+        return int8_matmul(x, layer[key + "_i8"], layer[key + "_s"])
     return x @ layer[key]
 
 

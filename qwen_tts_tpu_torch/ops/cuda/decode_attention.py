@@ -10,16 +10,16 @@ mode (``decode_attention_int8``), whose scales fold into the dots. It is bound
 by bytes: ``B * n_valid * KV * hd * 2 * sizeof(cache element)`` (plus the
 int8 cache's scales) over 3.35 TB/s. The source notes its design.
 
-The kernel splits each row's valid range over ``n_split`` blocks, one
-cluster per (row, KV head), and merges their partial softmaxes inside the
-launch. ``choose_split`` is the host's choice of ``n_split`` (from S_max and
-B x KV only, so no device value is read), ``split_ok`` says which
-``n_split`` the kernel takes (powers of two up to 16), and ``valid_range``
-and ``split_share`` mirror, in the kernel's integer arithmetic, how each
-block finds its share on the device; the tests hold them to the kernel's
-contract. The merge order follows ``n_split``, so a row's bits are the same
-from launch to launch at one (S_max, B), but may differ in the last bit
-across batch sizes or cache lengths.
+The kernel splits each row's valid range into chunks of ``CHUNK`` positions
+counted from the row's first, deals them over the warps of ``n_split``
+blocks (one cluster per (row, KV head)) and merges their partial softmaxes
+inside the launch, in an order fixed by the row alone. ``choose_split`` is
+the host's choice of ``n_split`` (from S_max only, so no device value is
+read), ``split_ok`` says which ``n_split`` the kernel takes (powers of two up
+to 8), and ``valid_range`` and ``split_share`` mirror, in the kernel's
+integer arithmetic, how each warp finds its positions on the device; the
+tests hold them to the kernel's contract. A row's bits do not depend on the
+batch, on S_max or on where left padding puts the row in its cache.
 
 Each wrapper launches the kernel for CUDA tensors and takes its plain version
 only for CPU tensors. ``decode_attention.launches`` and
@@ -42,26 +42,28 @@ NO_WINDOW = 2 ** 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _GROUPS = (1, 2, 4, 8, 16)
-# Splits per (row, KV head): at most one cluster of 16 blocks; at least 16
-# cache slots per split; about four blocks per SM of the H100's 132.
-MAX_SPLIT = 16
-MIN_SLOTS_PER_SPLIT = 16
-TARGET_BLOCKS = 4 * 132
-# Warps per block, each taking an equal share of its block's share, and the
-# positions a warp takes per chunk (the kernel's kWarps and kP). A block
-# whose share is at most CHUNK positions takes them one at a time.
+# Splits per (row, KV head): at most one portable cluster of 8 blocks. At
+# 16 a B=32 x 2080 launch was 1024 blocks, 1.55 waves of the 5 an SM that
+# fit, and the int8 cache took 4.4x its byte bound (NVIDIA H100 80GB HBM3,
+# 700 W); at 8 it is one wave.
+MAX_SPLIT = 8
+# Warps per block, and the positions of one chunk (the kernel's kWarps and
+# kP): chunk j of a row goes to warp slot j mod (n_split * WARPS_PER_BLOCK).
+# A row of at most CHUNK positions takes block 0's warps, an equal share
+# each, one position at a time.
 WARPS_PER_BLOCK = 4
 CHUNK = 16
 _fns = {}
 
 
-def choose_split(s_max: int, pairs: int) -> int:
-    """The kernel's n_split for a cache of ``s_max`` slots and ``pairs`` =
-    B x KV (row, KV head) pairs: the largest power of two that is at most
-    MAX_SPLIT, S_max / MIN_SLOTS_PER_SPLIT and ceil(TARGET_BLOCKS / pairs),
-    and at least 1."""
-    n = min(MAX_SPLIT, s_max // MIN_SLOTS_PER_SPLIT, -(-TARGET_BLOCKS // max(pairs, 1)))
-    return 1 << (max(n, 1).bit_length() - 1)
+def choose_split(s_max: int) -> int:
+    """The kernel's n_split for a cache of ``s_max`` slots: the power of two
+    of blocks whose warps cover ceil(S_max / CHUNK) chunks, at most
+    MAX_SPLIT. Any row of the cache then has at most one chunk a warp, or,
+    at MAX_SPLIT, the deal every longer row gets."""
+    chunks = -(-s_max // CHUNK)
+    blocks = -(-chunks // WARPS_PER_BLOCK)
+    return min(MAX_SPLIT, 1 << max(blocks - 1, 0).bit_length())
 
 
 def split_ok(n_split: int) -> bool:
@@ -81,12 +83,22 @@ def valid_range(cur_len: int, valid_from: int, s_max: int, window: int = NO_WIND
     return lo, hi, False
 
 
-def split_share(lo: int, hi: int, n_split: int, rank: int):
-    """Block ``rank``'s share [start, end) of [lo, hi): equal shares to one
-    position, in the kernel's integer arithmetic (n * r / n_split). A warp's
-    share of its block's is ``split_share(start, end, WARPS_PER_BLOCK, w)``."""
+def split_share(lo: int, hi: int, n_split: int, rank: int, warp: int):
+    """The positions warp ``warp`` of block ``rank`` takes of [lo, hi), as
+    the [start, end) pieces it walks in order: a row of at most CHUNK
+    positions in equal shares over block 0's warps (n * w / WARPS_PER_BLOCK,
+    walked one position at a time); a longer row's chunks [lo + j CHUNK,
+    lo + (j + 1) CHUNK) for j = slot, slot + n_split * WARPS_PER_BLOCK, ...
+    with slot = rank * WARPS_PER_BLOCK + warp."""
     n = hi - lo
-    return lo + n * rank // n_split, lo + n * (rank + 1) // n_split
+    if n <= CHUNK:
+        if rank:
+            return []
+        start, end = lo + n * warp // WARPS_PER_BLOCK, lo + n * (warp + 1) // WARPS_PER_BLOCK
+        return [(start, end)] if end > start else []
+    slot, slots = rank * WARPS_PER_BLOCK + warp, n_split * WARPS_PER_BLOCK
+    return [(lo + j * CHUNK, min(hi, lo + (j + 1) * CHUNK))
+            for j in range(slot, -(-n // CHUNK), slots)]
 
 
 def _kernel_fn(name: str, n_pointers: int):
@@ -169,7 +181,7 @@ def decode_attention(
     _check(q, k_cache.shape, cur_len, valid_from, (q, k_cache, v_cache, cur_len, valid_from))
     b, h, hd = q.shape
     s_max, kv = k_cache.shape[1], k_cache.shape[2]
-    n_split = choose_split(s_max, b * kv)
+    n_split = choose_split(s_max)
     out = torch.empty_like(q)
     err = _kernel_fn("qtts_decode_attention", 6)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), cur_len.data_ptr(),
@@ -223,7 +235,7 @@ def decode_attention_int8(
         raise ValueError("int8 caches and their scales [B, S_max, KV] do not match")
     _check(q, shape, cur_len, valid_from, (q, *parts, cur_len, valid_from))
     b, h, hd = q.shape
-    n_split = choose_split(shape[1], b * shape[2])
+    n_split = choose_split(shape[1])
     out = torch.empty_like(q)
     err = _kernel_fn("qtts_decode_attention_int8", 8)(
         q.data_ptr(), *(t.data_ptr() for t in parts), cur_len.data_ptr(),

@@ -7,9 +7,11 @@ rate) → three residual units (snake, K-tap dilated causal conv, snake, 1x1
 conv, add; dilations 1/3/9), channels last. The codec's units have K = 7,
 the TPU kernel was written for K = 3, and the kernel takes either. It
 replaces the TPU kernel ``scripts/exp_pallas_vocoder.py::fused_block``: the
-whole block in one launch, its activations kept in shared memory. It is bound by bf16
-tensor-core operations (see the source's note) and takes bf16 only, like the
-TPU kernel.
+whole block in one launch, its activations kept in shared memory, each CTA
+walking a run of tiles and carrying the causal convs' history from tile to
+tile. It is bound by bf16 tensor-core operations or, for narrow blocks, by
+the SnakeBeta instructions on the CUDA cores (see the source's note), and
+takes bf16 only, like the TPU kernel.
 
 ``vocoder_block`` launches the kernel for CUDA tensors (bf16, an input width
 of at most ``MAX_C_IN`` channels, widths that are multiples of 16; anything
@@ -19,12 +21,14 @@ launches. Both take a block in the codec's parameter layout (``load_codec``:
 ``alpha``, ``beta``, flipped-tap ``tconv_w`` [2 * rate, C_in, C_out],
 ``tconv_b``, ``resunits``); ``pack_vocoder_block`` lists its tensors in the
 order the kernel reads them, which reads them where they lie.
+``kernel_plan`` reports how the kernel cuts a call into tiles, segments and
+column splits.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,7 +40,16 @@ DILATIONS = (1, 3, 9)
 # (384 -> 192) and 3 (192 -> 96), the two geometries of the TPU kernel.
 MAX_C_IN = 384
 MAX_TAPS = 16
+# CTAs of a cluster that may share a tile's columns (the kernel's kMaxSplit).
+MAX_SPLIT = 8
 _UNIT_VECTORS = ("alpha1", "beta1", "conv1_b", "alpha2", "beta2", "conv2_b")
+# What ``kernel_plan`` reports, in the C entry's order.
+PLAN_KEYS = ("tile", "warm_tiles", "seg_tiles", "segments", "smem", "ctas_per_sm", "warp_n",
+             "split")
+# A timed launch's record per CTA (the kernel's TimelineSlot): SM cycles in
+# each phase kind, summed over its tiles, then the CTA's span.
+TIMELINE_PHASES = ("snake_in", "tconv", "snake_h", "conv_k", "snake_c", "conv_1x1", "store")
+TIMELINE_SLOTS = len(TIMELINE_PHASES) + 1
 _fns = {}
 
 
@@ -47,12 +60,12 @@ def _kernel_fn(name: str):
         lib = load_library("vocoder_block")
         block = lib.qtts_vocoder_block
         block.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.POINTER(ctypes.c_void_p)] * 2
-                          + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+                          + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2)
         block.restype = ctypes.c_int
-        tile = lib.qtts_vocoder_block_tile
-        tile.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3
-        tile.restype = ctypes.c_int
-        _fns.update(block=block, tile=tile)
+        plan = lib.qtts_vocoder_block_plan
+        plan.argtypes = [ctypes.c_int] * 11 + [ctypes.POINTER(ctypes.c_int)]
+        plan.restype = ctypes.c_int
+        _fns.update(block=block, plan=plan)
     return _fns[name]
 
 
@@ -111,8 +124,8 @@ def _check(x: torch.Tensor, weights: list, vectors: list, rate: int,
     if k != 2 * rate:
         raise ValueError(f"vocoder_block needs a transposed conv of 2 * rate taps, got {k} "
                          f"for rate {rate}")
-    if w_in != c_in or c_in > MAX_C_IN or c_in % 16 or c_out % 16:
-        raise ValueError(f"vocoder_block takes C_in <= {MAX_C_IN}, C_in and C_out multiples "
+    if w_in != c_in or c_in > MAX_C_IN or c_out > MAX_C_IN or c_in % 16 or c_out % 16:
+        raise ValueError(f"vocoder_block takes C_in, C_out <= {MAX_C_IN}, multiples "
                          f"of 16; got x width {c_in}, weights {w_in} -> {c_out}")
     taps = weights[1].shape[0]
     if not 1 <= taps <= MAX_TAPS:
@@ -127,27 +140,46 @@ def _check(x: torch.Tensor, weights: list, vectors: list, rate: int,
         if tuple(t.shape) != shape:
             raise ValueError(f"vocoder_block: operand {i} must be {shape}, got "
                              f"{tuple(t.shape)}")
-        if t.device != x.device or not t.is_contiguous() or (i < 7 and t.data_ptr() % 32):
-            raise ValueError(f"vocoder_block: operand {i} must be contiguous on {x.device}"
-                             f"{' and 32-byte aligned' if i < 7 else ''}")
+        align = 32 if i < 7 else 16
+        if t.device != x.device or not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"vocoder_block: operand {i} must be contiguous on {x.device} "
+                             f"and {align}-byte aligned")
 
 
-def kernel_tile(c_in: int, c_out: int, rate: int, taps: int,
-                dilations: Sequence[int] = DILATIONS) -> Tuple[int, int, int]:
-    """(extended rows, halo rows, dynamic shared bytes) of one CTA for a
-    block geometry (``taps``: the residual convs' K) on the current card."""
-    l_ext, halo, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = _kernel_fn("tile")(c_in, c_out, rate, taps, *dilations, ctypes.byref(l_ext),
-                             ctypes.byref(halo), ctypes.byref(smem))
+def column_splits(c_in: int, c_out: int) -> list:
+    """The cluster sizes the kernel takes for a geometry (its split_fits):
+    each CTA computes C_out / n columns, a multiple of 16, and snakes
+    C_in / n input channels, a multiple of 8."""
+    return [n for n in range(1, MAX_SPLIT + 1) if c_out % (16 * n) == 0 and c_in % (8 * n) == 0]
+
+
+def kernel_plan(c_in: int, c_out: int, rate: int, taps: int, batch: int, t_in: int,
+                dilations: Sequence[int] = DILATIONS, tile: int = 0, split: int = 0) -> dict:
+    """How the kernel cuts one call on the current card: ``tile`` output
+    rows a tile, ``warm_tiles`` tiles a segment runs before its first (their
+    rows dropped), ``seg_tiles`` tiles a segment writes, ``segments`` per
+    batch row, ``smem`` dynamic shared bytes a CTA, ``ctas_per_sm``,
+    ``warp_n`` (the GEMMs' warps along the columns) and ``split``, the CTAs
+    of a cluster
+    that share each tile's output columns (one cluster a segment). ``tile``
+    and ``split`` other than 0 ask for that tile or split instead of the
+    kernel's choice."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    err = _kernel_fn("plan")(c_in, c_out, rate, taps, *dilations, batch, t_in, tile, split, out)
     if err != 0:
-        raise RuntimeError(f"vocoder_block has no tile for {c_in} -> {c_out}, rate {rate}: "
-                           f"cudaError {err}")
-    return l_ext.value, halo.value, smem.value
+        raise RuntimeError(f"vocoder_block has no plan for {c_in} -> {c_out}, rate {rate}, "
+                           f"{taps} taps (tile {tile}, split {split}): cudaError {err}")
+    return dict(zip(PLAN_KEYS, out))
 
 
 def vocoder_block(x: torch.Tensor, block: dict, rate: int,
-                  dilations: Sequence[int] = DILATIONS) -> torch.Tensor:
-    """One vocoder block: x [B, T_in, C_in] → [B, T_in * rate, C_out]."""
+                  dilations: Sequence[int] = DILATIONS, tile: int = 0,
+                  split: int = 0, timeline: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One vocoder block: x [B, T_in, C_in] → [B, T_in * rate, C_out].
+    ``tile`` and ``split`` (CUDA only) as for ``kernel_plan``; the plain
+    version's result does not depend on them. ``timeline``, int64 zeros
+    [B * segments * split, TIMELINE_SLOTS] on the card, makes a timed
+    launch (``timeline_breakdown``)."""
     if not x.is_cuda:
         return vocoder_block_plain(x, block, rate, dilations)
 
@@ -155,10 +187,19 @@ def vocoder_block(x: torch.Tensor, block: dict, rate: int,
     _check(x, weights, vectors, rate, dilations)
     b, t_in, c_in = x.shape
     c_out = weights[0].shape[2]
+    if timeline is not None:
+        plan = kernel_plan(c_in, c_out, rate, weights[1].shape[0], b, t_in, dilations, tile,
+                           split)
+        ctas = b * plan["segments"] * plan["split"]
+        if (timeline.shape != (ctas, TIMELINE_SLOTS) or timeline.dtype != torch.int64
+                or timeline.device != x.device or not timeline.is_contiguous()):
+            raise ValueError(f"vocoder_block: timeline must be int64 [{ctas}, "
+                             f"{TIMELINE_SLOTS}] on {x.device}")
     out = torch.empty((b, t_in * rate, c_out), dtype=x.dtype, device=x.device)
     err = _kernel_fn("block")(
         x.data_ptr(), out.data_ptr(), _pointers(weights), _pointers(vectors), b, t_in, c_in,
-        c_out, rate, weights[1].shape[0], *dilations,
+        c_out, rate, weights[1].shape[0], *dilations, tile, split,
+        None if timeline is None else timeline.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
@@ -168,3 +209,13 @@ def vocoder_block(x: torch.Tensor, block: dict, rate: int,
 
 
 vocoder_block.launches = 0
+
+
+def timeline_breakdown(timeline: torch.Tensor) -> dict:
+    """Where a timed launch's time went: each phase kind's share of the
+    CTAs' spans (cycles summed over the CTAs), and the mean span in
+    cycles."""
+    t = timeline.cpu().double()
+    span = t[:, -1].sum().item()
+    shares = {name: t[:, i].sum().item() / span for i, name in enumerate(TIMELINE_PHASES)}
+    return {"share": shares, "span_cycles": t[:, -1].mean().item()}

@@ -1,10 +1,11 @@
-// Host emulation of the CUDA features that csrc/decode_attention.cu uses, so
-// that the kernel's source compiles with g++ and runs on the CPU: one
+// Host emulation of the CUDA features that the kernels of csrc/ use, so
+// that a kernel's source compiles with g++ and runs on the CPU: one
 // std::thread per CUDA thread, std::barrier for warps, blocks and clusters,
 // shuffles through a warp's exchange slots, mma.sync m16n8k16 by its PTX
 // fragment layouts, cp.async as a plain copy (a copy that lands early is one
-// of the orders the card allows). The PTX helpers of the kernel are cut from
-// its source and these take their place (tests/test_torch_attention_emulated.py).
+// of the orders the card allows), ldmatrix by its fragment layouts. The PTX
+// helpers of a kernel are cut from its source and these take their place
+// (tests/torch_port_fixtures.py: host_source).
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -36,10 +37,12 @@ struct float4 { float x, y, z, w; };
 inline uint2 make_uint2(uint32_t a, uint32_t b) { return {a, b}; }
 inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c, uint32_t d) { return {a, b, c, d}; }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 
 typedef int cudaError_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
 typedef void* cudaStream_t;
+enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin, cudaDevAttrMultiProcessorCount };
 
 inline float __uint_as_float(uint32_t u) { float f; memcpy(&f, &u, 4); return f; }
 inline uint32_t __float_as_uint(float f) { uint32_t u; memcpy(&u, &f, 4); return u; }
@@ -61,6 +64,16 @@ inline __nv_bfloat16 __float2bfloat16(float f) {
   return {(uint16_t)(u >> 16)};
 }
 inline float __bfloat162float(__nv_bfloat16 h) { return __uint_as_float((uint32_t)h.bits << 16); }
+inline __nv_bfloat16 __float2bfloat16_rn(float f) { return __float2bfloat16(f); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __frcp_rn(float a) { return 1.0f / a; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+using std::rintf;
+using std::fminf;
+using std::fmaxf;
 inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2bfloat16(a), __float2bfloat16(b)}; }
 inline float2 __bfloat1622float2(__nv_bfloat162 h) { return {__bfloat162float(h.x), __bfloat162float(h.y)}; }
 
@@ -70,12 +83,17 @@ struct Warp {
   uint32_t xch[32];
   uint32_t a[32][4], b[32][2];
   float d[32][4];
+  const void* addr[32];
 };
 struct Block {
-  std::barrier<> bar{128};
-  Warp warps[4];
+  explicit Block(int threads) : bar(threads), warps(new Warp[threads / 32]) {}
+  std::barrier<> bar;
+  std::unique_ptr<Warp[]> warps;
   std::vector<unsigned char> smem;
 };
+// What cudaDeviceGetAttribute reports (a test may set the SM count).
+inline int sm_count = 132;
+inline int max_smem_optin = 232448;
 struct Cluster {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<unsigned char*> smem;
@@ -158,6 +176,38 @@ inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
   }
 }
 
+// ldmatrix .x4 (and .trans): lane l gives the address of row l % 8 of
+// matrix l / 8; register i of lane l takes matrix i's row l / 4, columns
+// 2 (l % 4) and + 1 (transposed: rows 2 (l % 4) and + 1 of column l / 4).
+inline void ldsm_x4_any(uint32_t* r, const void* p, bool trans) {
+  auto& w = *emu::tls.w;
+  const int l = emu::tls.lane;
+  w.addr[l] = p;
+  w.bar.arrive_and_wait();
+  for (int i = 0; i < 4; ++i) {
+    uint16_t lo, hi;
+    if (trans) {
+      lo = static_cast<const uint16_t*>(w.addr[8 * i + 2 * (l % 4)])[l / 4];
+      hi = static_cast<const uint16_t*>(w.addr[8 * i + 2 * (l % 4) + 1])[l / 4];
+    } else {
+      const uint16_t* row = static_cast<const uint16_t*>(w.addr[8 * i + l / 4]);
+      lo = row[2 * (l % 4)];
+      hi = row[2 * (l % 4) + 1];
+    }
+    r[i] = (uint32_t)lo | (uint32_t)hi << 16;
+  }
+  w.bar.arrive_and_wait();
+}
+inline void ldsm_x4(uint32_t* r, const void* p) { ldsm_x4_any(r, p, false); }
+inline void ldsm_x4_trans(uint32_t* r, const void* p) { ldsm_x4_any(r, p, true); }
+
+inline long long clock64() { return 0; }
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? emu::sm_count : emu::max_smem_optin;
+  return cudaSuccess;
+}
+
 namespace cooperative_groups {
 struct cluster_group {
   template <typename P>
@@ -170,22 +220,25 @@ inline cluster_group this_cluster() { return {}; }
 }  // namespace cooperative_groups
 
 namespace emu {
-// Runs kernel over the grid, one cluster (grid.x blocks) at a time.
+// Runs kernel over the grid, one row of grid.x blocks at a time, in
+// clusters of cluster_x consecutive blocks (0: the whole row).
 template <typename K, typename P>
-int run(K kernel, dim3 grid, int smem_bytes, const P& prm) {
+int run(K kernel, dim3 grid, int smem_bytes, const P& prm, int block_threads = 128,
+        unsigned cluster_x = 0) {
+  if (cluster_x == 0) cluster_x = grid.x;
   for (unsigned z = 0; z < grid.z; ++z) {
     for (unsigned y = 0; y < grid.y; ++y) {
-      Cluster cl;
-      cl.bar = std::make_unique<std::barrier<>>(grid.x * 128);
+      std::vector<Cluster> clusters((grid.x + cluster_x - 1) / cluster_x);
+      for (auto& c : clusters) c.bar = std::make_unique<std::barrier<>>(cluster_x * block_threads);
       std::vector<std::unique_ptr<Block>> blocks;
       for (unsigned x = 0; x < grid.x; ++x) {
-        blocks.push_back(std::make_unique<Block>());
+        blocks.push_back(std::make_unique<Block>(block_threads));
         blocks.back()->smem.assign(smem_bytes, 0xff);  // stale bits: NaN patterns
-        cl.smem.push_back(blocks.back()->smem.data());
+        clusters[x / cluster_x].smem.push_back(blocks.back()->smem.data());
       }
       std::vector<std::thread> threads;
       for (unsigned x = 0; x < grid.x; ++x) {
-        for (int t = 0; t < 128; ++t) {
+        for (int t = 0; t < block_threads; ++t) {
           threads.emplace_back([&, x, t]() {
             tls.thread_idx = dim3(t);
             tls.block_idx = dim3(x, y, z);
@@ -194,7 +247,7 @@ int run(K kernel, dim3 grid, int smem_bytes, const P& prm) {
             tls.warp = t / 32;
             tls.blk = blocks[x].get();
             tls.w = &blocks[x]->warps[t / 32];
-            tls.cl = &cl;
+            tls.cl = &clusters[x / cluster_x];
             tls.smem = blocks[x]->smem.data();
             kernel(prm);
           });

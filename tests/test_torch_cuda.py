@@ -10,7 +10,7 @@ import torch
 
 import chip_smoke
 from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8
-from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
+from qwen_tts_tpu_torch.models.trunk import quantize_int8, quantize_trunk_int8
 from qwen_tts_tpu_torch.ops.attention import quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
     NO_WINDOW,
@@ -20,6 +20,7 @@ from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_int8_plain,
     decode_attention_plain,
 )
+from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
     KERNEL_DIMS,
     pack_subtalker_weights,
@@ -27,6 +28,8 @@ from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
     subtalker_step_plain,
 )
 from qwen_tts_tpu_torch.ops.cuda.vocoder_block import (
+    column_splits,
+    kernel_plan,
     vocoder_block,
     vocoder_block_plain,
 )
@@ -335,6 +338,31 @@ def test_vocoder_block_kernel_matches_plain(device, c_in, c_out, rate, taps, t_i
                                atol=chip_smoke.VOCODER_TOL * want.float().abs().max().item())
 
 
+@pytest.mark.parametrize("length", ["under", "at", "over", "first_packet"])
+@pytest.mark.parametrize("c_in,c_out,rate,first_packet", [(384, 192, 4, 320),
+                                                          (192, 96, 3, 1920)])
+def test_vocoder_block_column_splits_give_the_bits_of_no_split(device, c_in, c_out, rate,
+                                                               first_packet, length):
+    """The codec's blocks 2 and 3 at B=1, a length one row under, at and over
+    a tile and the stream's first packet (2 frames): every column split the
+    kernel takes gives the bits of no split, within tolerance of the plain
+    version; the plan's own choice splits the first packet."""
+    block = random_vocoder_block(device, c_in, c_out, rate, seed=c_in + 7)
+    tile = kernel_plan(c_in, c_out, rate, 7, 1, 64)["tile"]
+    t_in = {"under": tile // rate - 1, "at": tile // rate, "over": tile // rate + 1,
+            "first_packet": first_packet}[length]
+    g = torch.Generator(device=device).manual_seed(t_in)
+    x = (0.5 * torch.randn(1, t_in, c_in, generator=g, device=device)).bfloat16()
+    want = vocoder_block_plain(x, block, rate)
+    unsplit = vocoder_block(x, block, rate, split=1)
+    torch.testing.assert_close(unsplit.float(), want.float(), rtol=0,
+                               atol=chip_smoke.VOCODER_TOL * want.float().abs().max().item())
+    for n in column_splits(c_in, c_out)[1:]:
+        assert torch.equal(vocoder_block(x, block, rate, split=n), unsplit), n
+    if length == "first_packet":
+        assert kernel_plan(c_in, c_out, rate, 7, 1, t_in)["split"] > 1
+
+
 def test_vocoder_block_rejects_what_it_does_not_take(device):
     block = random_vocoder_block(device, 64, 32, 4, seed=0)
     x = torch.zeros(1, 10, 64, dtype=torch.bfloat16, device=device)
@@ -403,3 +431,197 @@ def test_bf16_codec_decode_on_the_card_matches_the_plain_route(device, monkeypat
     print(f"bf16 codec on the card, kernel vs plain route: relative L2 {rel:.3g}, "
           f"unclipped share {(want.abs() < 1).float().mean().item():.3f}")
     assert rel < CODEC_REL_L2
+
+
+# --------------------------------------------------------------------------
+# A row's bits do not depend on the rows beside it
+# --------------------------------------------------------------------------
+
+# (B, S_max, row, left padding) placements of one row; every one must give
+# the first one's bits. n = 60 positions fits S_max 97 (n_split 2) and 2080
+# (8); n = 1500 is a long row at 2080 and 1600 (both 8, several chunks a
+# warp).
+INVARIANT_PLACEMENTS = {
+    60: [(1, 97, 0, 0), (4, 97, 2, 30), (32, 97, 17, 5), (1, 2080, 0, 0), (4, 2080, 3, 1900),
+         (32, 2080, 31, 700)],
+    1500: [(1, 2080, 0, 0), (4, 2080, 1, 570), (32, 2080, 9, 33), (1, 1600, 0, 100)],
+}
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("n", sorted(INVARIANT_PLACEMENTS))
+def test_decode_attention_row_bits_do_not_depend_on_the_batch(device, n, int8):
+    """One row's query, keys and values at B 1/4/32, S_max 97 and 2080, moved
+    by left padding, with random rows around it: the same bits each time."""
+    g = torch.Generator(device=device).manual_seed(n + int8)
+    kv, hd = 2, 64
+    q_row = torch.randn(16, hd, generator=g, device=device)
+    k_row, v_row = (torch.randn(n, kv, hd, generator=g, device=device) * 3 for _ in range(2))
+    outs = []
+    for b, s_max, row, at in INVARIANT_PLACEMENTS[n]:
+        q = torch.randn(b, 16, hd, generator=g, device=device)
+        k, v = (torch.randn(b, s_max, kv, hd, generator=g, device=device) * 3 for _ in range(2))
+        q[row], k[row, at:at + n], v[row, at:at + n] = q_row, k_row, v_row
+        cur_len = torch.randint(1, s_max + 1, (b,), generator=g, device=device).int()
+        valid_from = (cur_len // 3).int()
+        cur_len[row], valid_from[row] = at + n, at
+        if int8:
+            k, v = _int8_caches_of(k, v)
+        else:
+            k, v = k.bfloat16(), v.bfloat16()
+        outs.append(decode_attention(q.bfloat16(), k, v, cur_len, valid_from)[row])
+    torch.cuda.synchronize()
+    for out, placement in zip(outs[1:], INVARIANT_PLACEMENTS[n][1:]):
+        assert torch.equal(out, outs[0]), placement
+
+
+def _int8_caches_of(k, v):
+    """Float K/V -> the int8 dict caches, quantized per token and head (a
+    row's entries do not depend on the others)."""
+    return tuple({"i8": i8, "s": s} for i8, s in (quantize_kv(t) for t in (k, v)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subtalker_step_row_bits_do_not_depend_on_the_batch(device, dtype):
+    """One row's input and cache rows at B 1, 4 and 32 (row 0, 2 and 17):
+    the same output and cache bits."""
+    n_layers, d, _, kv, hd, _ = KERNEL_DIMS
+    packed = _random_packed(device, dtype, seed=11)
+    g = torch.Generator(device=device).manual_seed(12)
+    pos = 9
+    x_row = torch.randn(d, generator=g, device=device).to(dtype)
+    kc_row, vc_row = (torch.randn(n_layers, 16, kv, hd, generator=g, device=device).to(dtype)
+                      for _ in range(2))
+    cos, sin = rope_cos_sin(torch.arange(16, device=device), hd, 10000.0)
+    outs = []
+    for b, row in ((1, 0), (4, 2), (32, 17)):
+        x = torch.randn(b, d, generator=g, device=device).to(dtype)
+        kc, vc = (torch.randn(n_layers, b, 16, kv, hd, generator=g, device=device).to(dtype)
+                  for _ in range(2))
+        x[row], kc[:, row], vc[:, row] = x_row, kc_row, vc_row
+        out, kc, vc = subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, 1e-6)
+        outs.append((out[row], kc[:, row], vc[:, row]))
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        for a, b in zip(other, outs[0]):
+            assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------
+# The int8-weight GEMM
+# --------------------------------------------------------------------------
+
+# (K, N, f32_out): the talker's projections at the flagship dims (q and o
+# 1024 x 1024, k and v 1024 x 128, gate and up 1024 x 2048, down 2048 x
+# 1024) and the sub-talker LM head (1024 x 2048, f32 logits).
+INT8_MATMUL_SHAPES = [(1024, 1024, False), (1024, 128, False), (1024, 2048, False),
+                      (2048, 1024, False), (1024, 2048, True)]
+# bf16: the product rounds to bf16 after a sum in another order, one ulp
+# (at most 2^-7 of the largest value), times the scale.
+INT8_MATMUL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -6}
+
+
+def _int8_weight(g, k, n, device):
+    return quantize_int8(torch.randn(k, n, generator=g, device=device) / math.sqrt(k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 32, 128])
+@pytest.mark.parametrize("k,n,f32_out", INT8_MATMUL_SHAPES)
+def test_int8_matmul_kernel_matches_plain(device, k, n, f32_out, m, dtype):
+    g = torch.Generator(device=device).manual_seed(k + n + m)
+    w_i8, s = _int8_weight(g, k, n, device)
+    x = torch.randn(m, k, generator=g, device=device).to(dtype)
+    before = int8_matmul.launches
+    got = int8_matmul(x, w_i8, s, f32_out)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    want = int8_matmul_plain(x, w_i8, s, f32_out)
+    assert got.dtype == want.dtype and got.shape == want.shape == (m, n)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=INT8_MATMUL_TOL[dtype] * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n,f32_out", INT8_MATMUL_SHAPES)
+def test_int8_matmul_row_bits_do_not_depend_on_m(device, k, n, f32_out, dtype):
+    g = torch.Generator(device=device).manual_seed(3)
+    w_i8, s = _int8_weight(g, k, n, device)
+    x = torch.randn(32, k, generator=g, device=device).to(dtype)
+    full = int8_matmul(x, w_i8, s, f32_out)
+    four = int8_matmul(x[:4].contiguous(), w_i8, s, f32_out)
+    one = int8_matmul(x[17:18].contiguous(), w_i8, s, f32_out)
+    torch.cuda.synchronize()
+    assert torch.equal(four, full[:4])
+    assert torch.equal(one, full[17:18])
+
+
+def test_int8_matmul_rejects_what_it_does_not_take(device):
+    g = torch.Generator(device=device).manual_seed(0)
+    w_i8, s = _int8_weight(g, 64, 48, device)
+    x = torch.zeros(2, 64, device=device)
+    before = int8_matmul.launches
+    with pytest.raises(TypeError):  # float16 activations
+        int8_matmul(x.half(), w_i8, s)
+    with pytest.raises(TypeError):  # f32 scales
+        int8_matmul(x, w_i8, s.float())
+    with pytest.raises(ValueError):  # N not a multiple of 16
+        int8_matmul(x, w_i8[:, :40].contiguous(), s[:, :40].contiguous())
+    with pytest.raises(ValueError):  # bf16 activations with K not a multiple of 16
+        w40, s40 = _int8_weight(g, 40, 48, device)
+        int8_matmul(torch.zeros(2, 40, dtype=torch.bfloat16, device=device), w40, s40)
+    with pytest.raises(ValueError):  # a weight that does not chain
+        int8_matmul(torch.zeros(2, 32, device=device), w_i8, s)
+    with pytest.raises(ValueError):  # K past the kernel's split
+        big, big_s = _int8_weight(g, 4097, 16, device)
+        int8_matmul(torch.zeros(1, 4097, device=device), big, big_s)
+    assert int8_matmul.launches == before
+
+
+def test_generate_batch_matches_single_on_the_card(device, tmp_path):
+    """The port's counterpart of tests/test_generate.py's
+    test_generate_batch_matches_single on the card: two prompts of the tiny
+    config, f32, left-padded into one batch (bucket 4) and each alone, 5
+    greedy tokens; each row's codes equal its solo codes. The heads are
+    64 wide (the decode-attention kernel takes 64 and 128)."""
+    import dataclasses
+
+    import numpy as np
+
+    from qwen_tts_tpu_torch.config import tiny_tts_config
+    from qwen_tts_tpu_torch.generate import (
+        GenerationParams, batch_prompts, build_prompt, generate_codes)
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    cfg = tiny_tts_config()
+    tk = dataclasses.replace(
+        cfg.talker, head_dim=64, mrope_section=(16, 8, 8),
+        code_predictor=dataclasses.replace(cfg.talker.code_predictor, head_dim=64))
+    cfg = dataclasses.replace(cfg, talker=tk)
+    chip_smoke.write_checkpoint(str(tmp_path), cfg, seed=0, device=device.type)
+    model = Qwen3TTSModel.from_pretrained(str(tmp_path), talker_dtype=torch.float32,
+                                          device=device, load_tokenizer=False)
+    role, tail = [1, 2, 3], [4, 5, 1, 2, 3]
+    p1 = build_prompt(model.talker_params, model.cfg, role + list(range(10, 14)) + tail,
+                      language="auto", speaker="aiden")
+    p2 = build_prompt(model.talker_params, model.cfg, role + list(range(10, 17)) + tail,
+                      language="english")
+    # EOS banned (min_new_tokens past the budget): every row runs 5 frames.
+    gp = dataclasses.replace(GenerationParams(max_new_tokens=5).greedy(), min_new_tokens=6)
+    kw = dict(sampling=gp.talker_sampling(), st_sampling=gp.subtalker_sampling(),
+              max_new_tokens=5, generator=None)
+
+    def run(prompts):
+        e, m, t, _ = batch_prompts(prompts, bucket=4)
+        return generate_codes(model.talker_params, model.subtalker_params, model.cfg.talker,
+                              e, m, t, **kw)
+
+    before = decode_attention.launches
+    both = run([p1, p2])
+    assert decode_attention.launches > before  # the kernel ran
+    for i, p in enumerate((p1, p2)):
+        solo = run([p])
+        n = int(solo.num_gen[0])
+        assert n == int(both.num_gen[i]) == 4  # the budget-exhausted last frame trimmed
+        np.testing.assert_array_equal(solo.codes[0, :n].cpu().numpy(),
+                                      both.codes[i, :n].cpu().numpy())
