@@ -30,17 +30,24 @@ Phases, each of which exits non-zero on failure:
 4. path: writes a random-weight checkpoint at the flagship 12 Hz dims,
    loads it with ``Qwen3TTSModel.from_pretrained`` and runs
    ``generate_custom_voice`` for a batch of 4 (talker bf16, codec f32,
-   sampled, fixed length); the decode-attention launch count must be exactly
-   frames x (talker layers + groups x sub-talker layers);
+   sampled, fixed length); the decode replays one captured CUDA graph per
+   frame (a warm-up call at the same shapes captures it); the
+   decode-attention launch count, captured launches x replays, must be
+   exactly frames x (talker layers + groups x sub-talker layers); then the
+   decode loop and the whole call timed through the graphs and eagerly, five
+   runs each in turns (ms/step, RTF, peak memory), and torch.profiler over a
+   16-frame decode segment each way (device idle share, host launch calls
+   per frame);
 5. parity: the same checkpoint in f32 on the card and on the CPU must give
-   the same greedy codes;
+   the same greedy codes (the card's recorded run eager, its replayed codes
+   equal to them);
 6. serving: the same checkpoint and texts after
    ``quantize_for_serving(talker=True, kv=True)``; the micro-step kernel must
    launch exactly frames x groups times, the int8-cache attention frames x
    talker layers times, the int8 GEMM (prefill + frames) x talker layers x 7
    + frames x 15 LM heads, the float-cache attention not at all; no int8
    weight may be cast whole; each text's greedy codes alone against its row
-   of the batch of 4 (reported as rows equal / 4);
+   of the batch of 4 (reported as rows equal / 4); timed as phase 4;
 7. serving parity: phase 5 with int8 weights (``quantize_for_serving(
    talker=True)``, codes equal), then with the int8 KV cache as well
    (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``);
@@ -51,10 +58,23 @@ Phases, each of which exits non-zero on failure:
    with the block's plain version; the f32 codec of phase 4 launches it not
    at all; the bf16 and f32 codecs' decode walls, five calls each;
 9. streaming: ``stream_custom_voice`` (bf16 talker, bf16 codec, B=1, greedy,
-   EOS banned): first-packet latency, each chunk's wall time, the RTF; the
-   chunks must hold frames x 1920 samples, the kernels must launch exactly as
-   the chunk schedule predicts, and the streamed codes must equal
-   ``generate_codes`` at the stream's prompt bucket (16).
+   EOS banned): the first packet one graph replay, the later segments
+   replays of the captured frame, the later codec windows replays of one
+   graph; first-packet latency, each chunk's wall time, the RTF; the chunks
+   must hold frames x 1920 samples, the kernels must launch exactly as the
+   chunk schedule predicts (with the frames replayed past the last row's end
+   before the next flag read), and the streamed codes must equal
+   ``generate_codes`` at the stream's prompt bucket (16); five streams each
+   through the graphs and eagerly, in turns, and the eager first packet
+   stage by stage (CUDA events);
+10. graphs: the replayed decode against the eager frame loop, each through
+   the module's own function, bit for bit (codes, buffer, state): bf16,
+   serving and serving + int8 KV at B=4 and MAX_NEW frames, with EOS banned
+   and with EOS allowed (rows stop at different frames, frames run past the
+   last row's end); sampled, one seed twice identical, another seed
+   different, graph == eager; the B=1 first packet one graph replay, codes
+   equal to the eager three-stage program's and its waveform within
+   ``BF16_CODEC_REL_L2``. Each phase logs its graphs' capture cost.
 
 The line before the last holds the kernels' JSON records; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``qwen_tts_tpu``.
@@ -62,6 +82,8 @@ The line before the last holds the kernels' JSON records; the last line is
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -1112,33 +1134,39 @@ def _device_us(fn, name: str, iters: int = 5, per_call: int = 1) -> float:
     ``name`` over ``iters`` calls, from torch.profiler. Each such kernel is
     launched ``per_call`` times a call. The profiler can miss the kernels of
     the first calls after it starts, so it records 2 x ``iters`` calls and
-    counts each kernel's last ``iters`` x ``per_call`` launches; it fails
-    when it saw no such kernel, or fewer launches of one than that."""
+    counts each kernel's last ``iters`` x ``per_call`` launches. A profile
+    that saw fewer launches of a kernel than that is never used: it is taken
+    again, up to three times in all (on the H100 a full chip_smoke run has
+    seen such a profile keep 18 and 25 of 100 launches, where the same
+    launches profiled alone were all kept); it fails when none saw them all,
+    or when it saw no such kernel."""
     from collections import defaultdict
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(2 * iters):
-            fn()
-        torch.cuda.synchronize()
-    launches = defaultdict(list)
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA and name in e.name:
-            launches[e.name].append((e.time_range.start, e.time_range.elapsed_us()))
-    if not launches:
-        fail(f"the profiler saw no kernel named like {name!r}")
     want = iters * per_call
-    total = 0.0
-    for kernel, runs in launches.items():
-        if len(runs) < want:
-            fail(f"the profiler saw {len(runs)} launches of {kernel[:80]}, fewer than the "
-                 f"{want} of the last {iters} calls")
-        total += sum(us for _, us in sorted(runs)[-want:])
-    return total / iters
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(2 * iters):
+                fn()
+            torch.cuda.synchronize()
+        launches = defaultdict(list)
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA and name in e.name:
+                launches[e.name].append((e.time_range.start, e.time_range.elapsed_us()))
+        if not launches:
+            fail(f"the profiler saw no kernel named like {name!r}")
+        short = {k: len(r) for k, r in launches.items() if len(r) < want}
+        if not short:
+            return sum(sum(us for _, us in sorted(runs)[-want:])
+                       for runs in launches.values()) / iters
+        log(f"profile {attempt + 1} of 3 kept too few launches ({list(short.values())} of the "
+            f"{want} of the last {iters} calls: {[k[:60] for k in short]}); taken again")
+    fail(f"the profiler saw fewer launches than the {want} of the last {iters} calls in three "
+         f"profiles")
 
 
 def hold_vocoder_block(x, block: dict, rate: int, label: str, split: int = 0) -> float:
@@ -1641,7 +1669,7 @@ def count_int8_weight_casts(model, prompts, kw) -> int:
                 Casts.count += 1
             return func(*args, **kwargs)
 
-    with Casts():
+    with eager_decode(), Casts():  # the ops a captured frame replays, run as they come
         model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
     return Casts.count
 
@@ -1672,13 +1700,78 @@ def _attention_splits():
                     for fn in (decode_attention, decode_attention_int8) if fn.splits}
 
 
+@contextlib.contextmanager
+def eager_decode():
+    """The port's decode run eagerly on the card: the frame loop, the
+    stream's first packet and its codec windows through the modules' own
+    eager functions (``_decode_eager``, ``_first_packet_eager``,
+    ``codec_decode``) in place of their CUDA graphs. For the comparisons
+    and timings of graph against eager only; no switch of the package."""
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch import pipeline as pipeline_mod
+    from qwen_tts_tpu_torch.models import codec as codec_mod
+
+    saved = (gen_mod._decode, pipeline_mod._first_packet_program, pipeline_mod._codec_window)
+    gen_mod._decode = gen_mod._decode_eager
+    pipeline_mod._first_packet_program = pipeline_mod._first_packet_eager
+    pipeline_mod._codec_window = codec_mod.codec_decode
+    try:
+        yield
+    finally:
+        gen_mod._decode, pipeline_mod._first_packet_program, pipeline_mod._codec_window = saved
+
+
+def _spread(values, fmt="{:.2f}") -> str:
+    """median (min..max)"""
+    return (f"{fmt.format(statistics.median(values))} ({fmt.format(min(values))}.."
+            f"{fmt.format(max(values))})")
+
+
+def graph_vs_eager(fn, runs: int = 5):
+    """``fn`` timed ``runs`` times through the graphs and ``runs`` times
+    eagerly, in turns (graph, eager, eager, graph, ...): per side the host
+    wall seconds (each run ends in a synchronise), the peak device memory
+    allocated in each run and ``fn``'s results."""
+    import torch
+
+    out = {"graph": {"wall": [], "peak": [], "result": []},
+           "eager": {"wall": [], "peak": [], "result": []}}
+    for i in range(2 * runs):
+        side = "graph" if i % 4 in (0, 3) else "eager"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with eager_decode() if side == "eager" else contextlib.nullcontext():
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[side]["wall"].append(wall)
+        out[side]["peak"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        out[side]["result"].append(result)
+    return out
+
+
+def log_programs(tag: str, smi: str) -> None:
+    """The captured programs alive: kind, one-time warm-up + capture cost,
+    kernel launches captured."""
+    from qwen_tts_tpu_torch import graphs
+
+    for kind, program in graphs.programs():
+        log(f"{tag} graph {kind}: capture (warm-up run + capture) "
+            f"{program.graph.capture_s * 1e3:.1f} ms, captured launches "
+            f"{dict(sorted(program.graph.launches.items()))} | {smi}")
+
+
 def phase_path(model_dir: str, smi: str, serving: bool = False):
     """``generate_custom_voice`` at the flagship dims, bf16 talker (phase 4)
     or, with ``serving``, after ``quantize_for_serving(talker=True, kv=True)``
-    (phase 6). Returns each kernel's launches in the timed run."""
+    (phase 6). The decode replays one captured frame; the warm-up call at the
+    same shapes captures it, so the counted run only replays. Returns each
+    kernel's launches in the counted run."""
     import numpy as np
     import torch
 
+    from qwen_tts_tpu_torch import graphs
     from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
 
     name = "serving" if serving else "path"
@@ -1696,7 +1789,8 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     speakers = ["aiden", "serena", "aiden", "serena"]
     languages = ["english", "auto", "chinese", "english"]
 
-    model.generate_custom_voice(TEXTS, speakers, languages, max_new_tokens=3)  # warm-up
+    model.generate_custom_voice(TEXTS, speakers, languages, **kw)  # warm-up: the capture
+    log_programs(name, smi)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = _counters()
@@ -1727,7 +1821,8 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
         expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
                     "subtalker_step": 0, "vocoder_block": 0, "int8_matmul": 0}
         how = f"decode_attention {MAX_NEW} frames x {per_frame}, the others 0"
-    log(f"{name}: launches {launches}, expected {expected} ({how})")
+    log(f"{name}: launches {launches}, expected {expected} ({how}; the frames' launches "
+        f"counted as captured launches x replays)")
     if launches != expected:
         fail(f"the {name} phase did not launch the kernels as expected")
     want_len = FRAMES * model.cfg.codec.decode_upsample_rate
@@ -1749,9 +1844,10 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
                             model._tokenize(model.build_assistant_text(t)),
                             language=lang, speaker=spk)
                for t, spk, lang in zip(TEXTS, speakers, languages)]
+    params = model._merge_params(**kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    codes, _ = model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
+    codes, _ = model.generate_codes_from_prompts(prompts, params)
     t_codes = time.perf_counter() - t0
     t0 = time.perf_counter()
     codec_wavs = model.decode_codes(codes)
@@ -1759,7 +1855,26 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     codec_walls = decode_walls(model, codes)
     log(f"{name} split: decode loop {t_codes:.3f} s ({t_codes / MAX_NEW * 1e3:.2f} ms/step), "
         f"codec (f32) {t_codec:.3f} s | {smi}")
-    profile_decode(model, prompts, dict(kw, max_new_tokens=9, min_new_tokens=10), smi, name)
+
+    # Graph against eager, in turns: the decode loop, then the whole call.
+    loops = graph_vs_eager(lambda: model.generate_codes_from_prompts(prompts, params)[0])
+    calls = graph_vs_eager(lambda: model.generate_custom_voice(TEXTS, speakers, languages,
+                                                               **kw)[0])
+    for side in ("graph", "eager"):
+        ms = [w / MAX_NEW * 1e3 for w in loops[side]["wall"]]
+        rtf = [audio_s / w for w in calls[side]["wall"]]
+        log(f"{name} {side}: over {len(ms)} runs, median (min..max): decode loop "
+            f"{_spread(ms)} ms/step, peak mem allocated {_spread(loops[side]['peak'], '{:.3f}')}"
+            f" GiB; generate_custom_voice {_spread(calls[side]['wall'], '{:.3f}')} s, "
+            f"RTF(audio/wall) {_spread(rtf, '{:.3f}')}, peak mem allocated "
+            f"{_spread(calls[side]['peak'], '{:.3f}')} GiB | {smi}")
+    same = all(all((a == b).all() for a, b in zip(r, codes))
+               for side in loops.values() for r in side["result"])
+    log(f"{name}: graph and eager runs give the codes of the split's run: {same}")
+    if not same:
+        fail(f"the {name} phase's graph and eager decodes disagree")
+
+    profile_decode(model, prompts, kw, smi, name)
     if serving:
         casts = count_int8_weight_casts(model, prompts, dict(kw, max_new_tokens=3,
                                                              min_new_tokens=4))
@@ -1768,49 +1883,74 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
         if casts:
             fail("the serving path still casts int8 weights whole")
         check_serving_rows_alone(model, smi)
+    log_programs(name, smi)
     del model
+    graphs.clear()
     torch.cuda.empty_cache()
     return {"launches": launches, "codes": codes, "wavs": codec_wavs, "codec_s": t_codec,
             "codec_walls": codec_walls}
 
 
-def profile_decode(model, prompts, kw, smi: str, name: str) -> None:
-    """Where the decode loop's time goes: torch.profiler over a short run;
-    device busy time by kernel against the host's wall time."""
+# Host calls that start device work, as the profiler names them: kernel
+# launches (``cudaLaunch*``, ``cuLaunch*``: plain, cooperative, extended)
+# and graph launches.
+HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) -> None:
+    """Where a decode segment's time goes: torch.profiler over ``frames``
+    frames at the path's shapes (the prefill before them, outside the
+    profile), replayed and eager: device busy time by kernel against the
+    host's wall time, and the host calls that start device work."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
-                    key=lambda e: e.self_device_time_total, reverse=True)
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    launches = sum(e.count for e in events if e.key.startswith("cudaLaunchKernel"))
-    steps = kw["max_new_tokens"]
-    if busy_ms == 0:
-        log(f"{name} profile: the profiler saw no device time (not measured)")
-        return
-    log(f"{name} profile: decode loop {steps} steps B={len(prompts)}: wall {wall_ms:.1f} ms "
-        f"(profiler on), device busy {busy_ms:.1f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}, {launches / steps:.0f} kernel launches/step | {smi}")
-    for e in device[:12]:
-        log(f"  {name} profile kernel: {e.self_device_time_total / 1e3:8.2f} ms "
-            f"{e.count:6d}x  {e.key[:90]}")
-    for e in device:  # the port's own kernels, each per launch
-        if any(k in e.key for k in PORT_KERNELS):
-            log(f"  {name} profile port kernel: {e.self_device_time_total / e.count:.2f} us "
-                f"device per launch, {e.count} launches: {e.key[:70]} | {smi}")
+    from qwen_tts_tpu_torch.generate import batch_prompts
+
+    params = model._merge_params(**kw)
+    dtype = model.talker_params["norm"].dtype
+    e, m, t, _ = batch_prompts(prompts)
+    inputs = (e.to(dtype), m, t.to(dtype))
+    walls = {"graph": [], "eager": []}
+    for i in range(10):  # unprofiled, in turns: graph, eager, eager, graph, ...
+        side = "graph" if i % 4 in (0, 3) else "eager"
+        walls[side].append(_segment(model, inputs, params, side == "eager", frames=frames)[2])
+    for side in ("graph", "eager"):
+        _, _, wall, prof = _segment(
+            model, inputs, params, side == "eager", frames=frames,
+            profiler=lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        wall_ms = wall * 1e3
+        events = prof.key_averages()
+        device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.self_device_time_total, reverse=True)
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        launches = {e.key: e.count for e in events if e.key.startswith(HOST_LAUNCHES)}
+        if busy_ms == 0:
+            log(f"{name} profile [{side}]: the profiler saw no device time (not measured)")
+            continue
+        plain_ms = statistics.median(walls[side]) * 1e3
+        log(f"{name} profile [{side}]: decode segment of {frames} frames B={len(prompts)} "
+            f"(prefill outside): wall {wall_ms:.1f} ms (profiler on), device busy "
+            f"{busy_ms:.1f} ms ({busy_ms / frames:.2f} ms/frame), idle share "
+            f"{1 - busy_ms / wall_ms:.3f}; wall without the profiler, median of "
+            f"{len(walls[side])} {_spread([w * 1e3 for w in walls[side]])} ms, idle share "
+            f"against it {1 - busy_ms / plain_ms:.3f}; {sum(launches.values()) / frames:.1f} "
+            f"host launch calls/frame {launches} | {smi}")
+        for e in device[:12]:
+            log(f"  {name} profile [{side}] kernel: {e.self_device_time_total / 1e3:8.2f} ms "
+                f"{e.count:6d}x  {e.key[:90]}")
+        for e in device:  # the port's own kernels, each per launch
+            if any(k in e.key for k in PORT_KERNELS):
+                log(f"  {name} profile [{side}] port kernel: "
+                    f"{e.self_device_time_total / e.count:.2f} us device per launch, {e.count} "
+                    f"launches: {e.key[:70]} | {smi}")
 
 
 def _greedy_codes(model, device, texts, speakers, kw, forced=None):
     """f32 greedy codes [rows, frames, groups], every sampling call's logits
-    (on the CPU) and token, and the talker KV caches as the run left them.
+    (on the CPU) and token, and the talker KV caches as the run left them,
+    from an eager run (on the card too: the recording reads every call).
     With ``forced``, another run's tokens are taken at each call instead of
     this run's own (teacher forcing), so both runs see the same contexts."""
     import numpy as np
@@ -1840,13 +1980,21 @@ def _greedy_codes(model, device, texts, speakers, kw, forced=None):
             model.talker_params, model.cfg,
             model._tokenize(model.build_assistant_text(t)), speaker=s)
             for t, s in zip(texts, speakers)]
-        codes, _ = model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
+        with eager_decode():  # the recording reads every call on the host
+            codes, _ = model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
     finally:
         gen_mod.sample_token, st_mod.sample_token, gen_mod.talker_mod.alloc_kv_cache = originals
     codes = np.stack(codes)
     log(f"parity: f32 greedy on {device}{' (teacher-forced)' * (forced is not None)}: "
         f"codes {codes.shape} in {time.perf_counter() - t0:.1f} s")
     return codes, calls, caches[-1]
+
+
+def card_prompt(model, text, speaker):
+    from qwen_tts_tpu_torch.generate import build_prompt
+
+    return build_prompt(model.talker_params, model.cfg,
+                        model._tokenize(model.build_assistant_text(text)), speaker=speaker)
 
 
 def _min_margin(calls):
@@ -1900,6 +2048,14 @@ def phase_parity(model_dir: str, mode: str = "float"):
                                                forced=card_calls)
     if a.shape != (2, 8, 16):
         fail(f"{name}: unexpected code shape {a.shape}")
+    card = models["cuda"]
+    prompts = [card_prompt(card, t, s) for t, s in zip(texts, speakers)]
+    graph = np.stack(card.generate_codes_from_prompts(prompts, card._merge_params(**kw))[0])
+    graph_equal = graph.shape == a.shape and bool((graph == a).all())
+    log(f"{name}: the card's codes from the captured frame equal its eager codes: "
+        f"{graph_equal}")
+    if not graph_equal:
+        fail(f"{name}: replayed and eager greedy codes differ on the card")
     if len(forced_calls) != len(card_calls):
         fail(f"{name}: {len(card_calls)} sampling calls on the card, {len(forced_calls)} on "
              f"the CPU")
@@ -2082,13 +2238,92 @@ def _recording_segments(pipeline_mod, frames: list):
     return originals
 
 
+def replays(segment: int, frames: int) -> int:
+    """Frames a decode of ``segment`` frames replays when its rows are done
+    after ``frames``: the loop reads the flag every CHECK_EVERY frames."""
+    from qwen_tts_tpu_torch.generate import CHECK_EVERY
+
+    return min(segment, max(1, -(-frames // CHECK_EVERY)) * CHECK_EVERY)
+
+
+def stream_schedule():
+    """The stream's emitted chunk sizes and the frames its decode replays:
+    MAX_NEW frames generated, the budget-exhausted last one dropped; the
+    first packet's frames, then segments of STREAM_CHUNK."""
+    chunks = [STREAM_FIRST] + [STREAM_CHUNK] * ((FRAMES - STREAM_FIRST) // STREAM_CHUNK)
+    if (FRAMES - STREAM_FIRST) % STREAM_CHUNK:
+        chunks.append((FRAMES - STREAM_FIRST) % STREAM_CHUNK)
+    frames, left = STREAM_FIRST, MAX_NEW - STREAM_FIRST
+    while left > 0:
+        frames += replays(STREAM_CHUNK, left)
+        left -= STREAM_CHUNK
+    return chunks, frames
+
+
+def _stream_once(model, kw, text, speaker, language):
+    """One stream: (first-packet seconds, wall seconds, audio seconds,
+    chunks, per-chunk arrival stamps)."""
+    chunks, stamps = [], []
+    t0 = time.perf_counter()
+    for wav, _ in model.stream_custom_voice(text, speaker, language,
+                                            first_chunk_frames=STREAM_FIRST,
+                                            chunk_frames=STREAM_CHUNK,
+                                            left_context_frames=STREAM_CONTEXT, **kw):
+        stamps.append(time.perf_counter() - t0)
+        chunks.append(wav)
+    wall = time.perf_counter() - t0
+    return stamps[0], wall, sum(c.shape[0] for c in chunks) / model.sample_rate, chunks, stamps
+
+
+def first_packet_split(model, prompt, params, runs: int = 5):
+    """The eager three-stage first packet timed stage by stage with CUDA
+    events: prefill, the first frames, the codec decode of their window.
+    Returns per stage the milliseconds of each run."""
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch.models import codec as codec_mod
+
+    dtype = model.talker_params["norm"].dtype
+    embeds, mask, trailing, _ = gen_mod.batch_prompts([prompt], bucket=16)
+    embeds, trailing = embeds.to(dtype), trailing.to(dtype)
+    tk, dec = model.cfg.talker, model.cfg.codec.decoder
+    limit = torch.full((1,), params.max_new_tokens, dtype=torch.int32, device=model.device)
+    out = {"prefill": [], "frames": [], "codec": [], "total": []}
+    for _ in range(runs):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        state = gen_mod._prefill(model.talker_params, tk, embeds, mask,
+                                 sampling=params.talker_sampling(),
+                                 max_cache_len=embeds.shape[1] + params.max_new_tokens,
+                                 generator=None, kv_int8=model.kv_int8)
+        ev[1].record()
+        state, seg = gen_mod._decode_eager(model.talker_params, model.subtalker_params, tk,
+                                           params.talker_sampling(),
+                                           params.subtalker_sampling(), state, trailing,
+                                           limit, STREAM_FIRST)
+        ev[2].record()
+        codec_mod.codec_decode(model.codec_params, dec,
+                               seg[:, :, : dec.num_quantizers].clamp(min=0))
+        ev[3].record()
+        torch.cuda.synchronize()
+        for k, (a, b) in zip(("prefill", "frames", "codec", "total"),
+                             ((0, 1), (1, 2), (2, 3), (0, 3))):
+            out[k].append(ev[a].elapsed_time(ev[b]))
+    return out
+
+
 def phase_stream(model_dir: str, smi: str):
     """``stream_custom_voice`` at the flagship dims, bf16 talker and codec,
-    B=1, greedy, EOS banned. Returns the kernels' launches in the timed
-    stream."""
+    B=1, greedy, EOS banned: the first packet one graph replay, the later
+    segments replays of the captured frame, the later codec windows replays
+    of one graph. The warm-up stream at the same shapes captures them.
+    Returns the kernels' launches in the counted stream."""
     import numpy as np
     import torch
 
+    from qwen_tts_tpu_torch import graphs
     from qwen_tts_tpu_torch import pipeline as pipeline_mod
     from qwen_tts_tpu_torch.generate import batch_prompts, build_prompt, generate_codes
     from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
@@ -2100,8 +2335,8 @@ def phase_stream(model_dir: str, smi: str):
     kw = dict(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1, do_sample=False,
               subtalker_dosample=False, repetition_penalty=1.0)
     first, chunk, ctx = STREAM_FIRST, STREAM_CHUNK, STREAM_CONTEXT
-    for _ in model.stream_custom_voice(text, speaker, language, **dict(kw, max_new_tokens=4)):
-        pass  # warm-up
+    _stream_once(model, kw, text, speaker, language)  # warm-up: the captures
+    log_programs("stream", smi)
     torch.cuda.synchronize()
 
     frames = []
@@ -2109,37 +2344,29 @@ def phase_stream(model_dir: str, smi: str):
     for fn in _counters().values():
         fn.launches = 0
     try:
-        chunks, stamps = [], []
-        t0 = time.perf_counter()
-        for wav, sr in model.stream_custom_voice(text, speaker, language,
-                                                 first_chunk_frames=first, chunk_frames=chunk,
-                                                 left_context_frames=ctx, **kw):
-            stamps.append(time.perf_counter() - t0)
-            chunks.append(wav)
-        wall = time.perf_counter() - t0
+        first_s, wall, audio_s, chunks, stamps = _stream_once(model, kw, text, speaker,
+                                                              language)
     finally:
         pipeline_mod._first_packet_program, pipeline_mod.decode_segment = originals
     launches = {k: fn.launches for k, fn in _counters().items()}
 
     up = model.cfg.codec.decode_upsample_rate
     sizes = [c.shape[0] // up for c in chunks]
-    # MAX_NEW frames generated, the budget-exhausted last one dropped.
-    schedule = [first] + [chunk] * ((FRAMES - first) // chunk)
-    if (FRAMES - first) % chunk:
-        schedule.append((FRAMES - first) % chunk)
+    schedule, replayed = stream_schedule()
     tk = model.cfg.talker
     per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
-    expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
+    expected = {"decode_attention": replayed * per_frame, "decode_attention_int8": 0,
                 "subtalker_step": 0, "vocoder_block": 2 * len(schedule), "int8_matmul": 0}
     gaps = np.diff([0.0] + stamps)
-    audio_s = sum(c.shape[0] for c in chunks) / model.sample_rate
     log(f"stream: B=1 first_chunk {first}, chunk {chunk}, left context {ctx} frames: "
         f"{len(chunks)} chunks of {sizes} frames, {sum(c.shape[0] for c in chunks)} samples; "
-        f"first-packet latency {stamps[0] * 1e3:.2f} ms; chunk wall times (ms) "
+        f"first-packet latency {first_s * 1e3:.2f} ms; chunk wall times (ms) "
         f"{[round(float(g) * 1e3, 2) for g in gaps]}; wall {wall:.3f} s, audio {audio_s:.2f} s, "
         f"RTF(audio/wall) {audio_s / wall:.3f} | {smi}")
-    log(f"stream: launches {launches}, expected {expected} (decode_attention {MAX_NEW} frames "
-        f"x {per_frame}; vocoder_block 2 per codec window, {len(schedule)} windows)")
+    log(f"stream: launches {launches}, expected {expected} (decode_attention {replayed} "
+        f"replayed frames x {per_frame}: {MAX_NEW} generated, the rest run past the last "
+        f"row's end before the next flag read; vocoder_block 2 per codec window, "
+        f"{len(schedule)} windows)")
     if sizes != schedule or sum(c.shape[0] for c in chunks) != FRAMES * up:
         fail(f"stream: chunks of {sizes} frames, want {schedule} ({FRAMES} x {up} samples)")
     for i, c in enumerate(chunks):
@@ -2166,14 +2393,228 @@ def phase_stream(model_dir: str, smi: str):
         f"{oneshot.shape}")
     if not equal:
         fail("streamed codes differ from the one-shot codes")
+
+    # Graph against eager, in turns, and the eager first packet stage by stage.
+    runs = graph_vs_eager(lambda: _stream_once(model, kw, text, speaker, language)[:3])
+    for side, r in runs.items():
+        firsts = [x[0] * 1e3 for x in r["result"]]
+        rtf = [x[2] / x[1] for x in r["result"]]
+        log(f"stream {side}: over {len(firsts)} streams, median (min..max): first-packet "
+            f"latency {_spread(firsts)} ms, stream RTF(audio/wall) {_spread(rtf, '{:.3f}')}, "
+            f"wall {_spread([x[1] for x in r['result']], '{:.3f}')} s, peak mem allocated "
+            f"{_spread(r['peak'], '{:.3f}')} GiB | {smi}")
+    split = first_packet_split(model, prompt, params)
+    log(f"stream first packet, eager, by stage (CUDA events, {len(split['total'])} runs, "
+        f"median (min..max) ms): prefill {_spread(split['prefill'])}, {first} frames "
+        f"{_spread(split['frames'])}, codec decode of {first} frames {_spread(split['codec'])}, "
+        f"total {_spread(split['total'])} | {smi}")
+    log_programs("stream", smi)
     del model
+    graphs.clear()
     torch.cuda.empty_cache()
     return launches
+
+
+def _eos_token(codes0, limits) -> int:
+    """Of the codebook-0 tokens of an EOS-banned run [B, T], the one whose
+    first frames differ over the most rows (none at frame 0) and leave the
+    last row's end, each row's first frame or its budget, off a flag read."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch.generate import CHECK_EVERY
+
+    best, best_spread = None, -1
+    for v in sorted(set(codes0[:, 1:].ravel().tolist())):
+        firsts = [int(np.argmax(row == v)) if (row == v).any() else None for row in codes0]
+        hits = [f for f in firsts if f is not None]
+        ends = [min(f, n) if f is not None else n for f, n in zip(firsts, limits)]
+        if 0 in hits or len(hits) < 2 or max(ends) % CHECK_EVERY == 0:
+            continue
+        if len(set(hits)) > best_spread:
+            best, best_spread = v, len(set(hits))
+    return best
+
+
+# Per-row frame budgets of the graphs phase's EOS run: every row ends
+# before MAX_NEW, the last of them off a flag read (61 = 7 x 8 + 5).
+EOS_RUN_LIMITS = (61, 53, 45, 37)
+
+
+def _segment(model, inputs, gp, eager: bool, seed=None, limits=None, frames=MAX_NEW,
+             profiler=None):
+    """Prefill, then ``frames`` frames from the module's own segment
+    function: ``_decode`` (replays of the captured frame) or
+    ``_decode_eager``; each row's budget ``limits`` (default MAX_NEW); the
+    cache holds MAX_NEW frames. ``profiler`` (a context manager factory)
+    wraps the frames alone; returns (state, buffer, host seconds of the
+    frames, each ending in a synchronise)."""
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+
+    e, m, t = inputs
+    tk = model.cfg.talker
+    generator = None if seed is None else torch.Generator(device="cuda").manual_seed(seed)
+    state = gen_mod._prefill(model.talker_params, tk, e, m, sampling=gp.talker_sampling(),
+                             max_cache_len=e.shape[1] + MAX_NEW, generator=generator,
+                             kv_int8=model.kv_int8)
+    limit = torch.tensor(limits or [MAX_NEW] * e.shape[0], dtype=torch.int32, device=e.device)
+    fn = gen_mod._decode_eager if eager else gen_mod._decode
+    torch.cuda.synchronize()
+    with profiler() if profiler else contextlib.nullcontext() as prof:
+        t0 = time.perf_counter()
+        state, buf = fn(model.talker_params, model.subtalker_params, tk, gp.talker_sampling(),
+                        gp.subtalker_sampling(), state, t, limit, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return state, buf, wall, prof
+
+
+def _same_decode(a, b) -> bool:
+    """Two (state, buffer) results bit for bit: the buffer, the codes state
+    and the hidden state."""
+    import torch
+
+    (sa, ba), (sb, bb) = a[:2], b[:2]
+    return bool(torch.equal(ba, bb)) and all(
+        torch.equal(getattr(sa, f), getattr(sb, f))
+        for f in ("token", "hidden", "presence", "eos", "num_gen"))
+
+
+def phase_graphs(model_dir: str, smi: str) -> None:
+    """Phase 10: the replayed decode against the eager frame loop on the
+    card, each through the module's own function (``_decode``,
+    ``_decode_eager``), B=4 at the path's prompts, MAX_NEW frames: bf16,
+    serving and serving + int8 KV, greedy with EOS banned and with EOS
+    allowed (the talker's EOS column set to 1.01 x the column of a token the
+    rows first choose at different frames, so rows stop at different frames
+    and frames run past the last row's end); bf16 sampled, one seed twice
+    and another seed, and sampled graph against eager; the B=1 first packet
+    as one graph replay against the eager three-stage program."""
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    speakers = ["aiden", "serena", "aiden", "serena"]
+    languages = ["english", "auto", "chinese", "english"]
+    for mode in ("bf16", "serving", "serving+kv"):
+        model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
+                                              load_tokenizer=False)
+        if mode != "bf16":
+            model.quantize_for_serving(talker=True, kv=mode == "serving+kv")
+        model.tokenizer = ChatTemplateTokenizer()
+        dtype = model.talker_params["norm"].dtype
+        prompts = [gen_mod.build_prompt(model.talker_params, model.cfg,
+                                        model._tokenize(model.build_assistant_text(t)),
+                                        language=lang, speaker=spk)
+                   for t, spk, lang in zip(TEXTS, speakers, languages)]
+        e, m, t, _ = gen_mod.batch_prompts(prompts)
+        inputs = (e.to(dtype), m, t.to(dtype))
+        banned = model._merge_params(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1,
+                                     do_sample=False, subtalker_dosample=False,
+                                     repetition_penalty=1.0)
+        graph = _segment(model, inputs, banned, eager=False)
+        eager = _segment(model, inputs, banned, eager=True)
+        same = _same_decode(graph, eager)
+        log(f"graphs [{mode}]: B=4, {MAX_NEW} frames, greedy, EOS banned: replayed == eager "
+            f"(buffer, token, hidden, presence, eos, num_gen bit for bit): {same}; num_gen "
+            f"{graph[0].num_gen.tolist()}; frames {graph[2] / MAX_NEW * 1e3:.2f} ms each "
+            f"replayed, {eager[2] / MAX_NEW * 1e3:.2f} eager (one run each) | {smi}")
+        if not same:
+            fail(f"graphs [{mode}]: the replayed decode differs from the eager loop")
+
+        x = _eos_token(graph[1][..., 0].cpu().numpy(), EOS_RUN_LIMITS)
+        eos = model.cfg.talker.codec_eos_token_id
+        head = model.talker_params["codec_head"].clone()
+        head[:, eos] = head[:, x] * 1.01
+        model.talker_params = dict(model.talker_params, codec_head=head)
+        allowed = dataclasses.replace(banned, min_new_tokens=0)
+        graph = _segment(model, inputs, allowed, eager=False, limits=EOS_RUN_LIMITS)
+        eager = _segment(model, inputs, allowed, eager=True, limits=EOS_RUN_LIMITS)
+        same = _same_decode(graph, eager)
+        num_gen = graph[0].num_gen.tolist()
+        done = max(num_gen)
+        ran = replays(MAX_NEW, done)
+        log(f"graphs [{mode}]: EOS allowed (EOS column = 1.01 x token {x}'s), budgets "
+            f"{list(EOS_RUN_LIMITS)}: rows stop "
+            f"after {num_gen} frames (EOS {graph[0].eos.tolist()}), the loop replays {ran} "
+            f"frames ({ran - done} past the last row's end), replayed == eager: {same}; "
+            f"buffer zero from frame {done}: {not bool(graph[1][:, done:].any())}")
+        if not same or graph[1][:, done:].any() or len(set(num_gen)) < 2 or not ran > done:
+            fail(f"graphs [{mode}]: the EOS run is not as the eager loop leaves it, or no "
+                 f"frame ran past the rows' end")
+
+        if mode == "bf16":
+            sampled = model._merge_params(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1)
+            runs = [_segment(model, inputs, sampled, eager=False, seed=s) for s in (0, 0, 1)]
+            eager = _segment(model, inputs, sampled, eager=True, seed=0)
+            twice = _same_decode(runs[0], runs[1])
+            other = not torch.equal(runs[0][1], runs[2][1])
+            vs_eager = _same_decode(runs[0], eager)
+            log(f"graphs [{mode}]: sampled (top-k 50, T 0.9, rep. penalty 1.05): seed 0 "
+                f"twice identical {twice}, seed 1 differs {other}, replayed == eager at "
+                f"seed 0 {vs_eager}")
+            if not (twice and other and vs_eager):
+                fail(f"graphs [{mode}]: sampled replays are not reproducible from the seed")
+            check_first_packet_graph(model, prompts[0], banned, smi)
+        log_programs(f"graphs [{mode}]", smi)
+        del model
+        graphs.clear()
+        torch.cuda.empty_cache()
+
+
+def check_first_packet_graph(model, prompt, params, smi: str) -> None:
+    """The B=1 first packet (bf16 talker and codec, greedy, EOS banned):
+    ``_first_packet_program`` is one graph replay; its codes and state equal
+    the eager three-stage program's, its waveform lies within
+    BF16_CODEC_REL_L2 of it."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch import pipeline as pipeline_mod
+
+    dtype = model.talker_params["norm"].dtype
+    embeds, mask, trailing, _ = gen_mod.batch_prompts([prompt], bucket=16)
+    args = (model.talker_params, model.subtalker_params, model.codec_params, model.cfg.talker,
+            model.cfg.codec.decoder, embeds.to(dtype), mask, trailing.to(dtype))
+    kw = dict(sampling=params.talker_sampling(), st_sampling=params.subtalker_sampling(),
+              max_cache_len=embeds.shape[1] + MAX_NEW, generator=None,
+              first_segment=STREAM_FIRST, step_limit=MAX_NEW)
+    pipeline_mod._first_packet_program(*args, **kw)  # the capture
+    count = [0]
+    replay = graphs.Graph.replay
+
+    def counting(self):
+        count[0] += 1
+        replay(self)
+
+    graphs.Graph.replay = counting
+    try:
+        state, seg, wav = pipeline_mod._first_packet_program(*args, **kw)
+    finally:
+        graphs.Graph.replay = replay
+    e_state, e_seg, e_wav = pipeline_mod._first_packet_eager(*args, **kw)
+    same = bool(torch.equal(seg, e_seg)) and all(
+        torch.equal(getattr(state, f), getattr(e_state, f))
+        for f in ("token", "hidden", "presence", "eos", "num_gen"))
+    a, b = wav.float().cpu().numpy(), e_wav.float().cpu().numpy()
+    rel = float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+    log(f"graphs first packet: B=1, {STREAM_FIRST} frames + codec decode: {count[0]} graph "
+        f"replay(s); codes and state == the eager three-stage program: {same}; waveform "
+        f"relative L2 {rel:.3g} (tol {BF16_CODEC_REL_L2}), shape {tuple(wav.shape)}")
+    if count[0] != 1 or not same or not rel <= BF16_CODEC_REL_L2 or not np.isfinite(a).all():
+        fail("graphs: the first packet's graph disagrees with the eager program")
 
 
 def main() -> int:
     smi = phase_device()
     import torch
+
+    from qwen_tts_tpu_torch import graphs
 
     phase_build()
     prefill_bucket = 32
@@ -2192,11 +2633,15 @@ def main() -> int:
             f"written in {time.perf_counter() - t0:.1f} s")
         path = phase_path(model_dir, smi)
         phase_parity(model_dir)
+        graphs.clear()
         serving = phase_path(model_dir, smi, serving=True)
         phase_parity(model_dir, "int8")
+        graphs.clear()
         phase_parity(model_dir, "int8+kv")
+        graphs.clear()
         phase_codec_bf16(model_dir, smi, path)
         stream = phase_stream(model_dir, smi)
+        phase_graphs(model_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.

@@ -9,16 +9,26 @@ EOS is tracked per row and the loop ends when every row has stopped or used
 its frame budget. Streaming runs the same loop in resumable segments:
 ``init_decode(first_segment=...)`` right after the prefill, then
 ``decode_segment`` on the carried ``DecodeState``.
+
+On the card a frame is one CUDA graph, captured once per configuration and
+replayed frame after frame on buffers that hold the decode state
+(``_FrameGraph``, ``graphs.py``): the counterpart of the JAX package's one
+jitted ``while_loop``. The host reads whether any row is still active only
+every ``CHECK_EVERY`` frames; the frames run past the point where every row
+is done change nothing. On the CPU the same frames and checks run eagerly.
+The prefill stays eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from qwen_tts_tpu_torch import graphs
 from qwen_tts_tpu_torch.config import TalkerConfig, TTSConfig
 from qwen_tts_tpu_torch.models import subtalker as st_mod
 from qwen_tts_tpu_torch.models import talker as talker_mod
@@ -31,6 +41,19 @@ from qwen_tts_tpu_torch.ops.sampling import (
     build_suppress_mask,
     sample_token,
 )
+
+# The host reads whether any row is still active once every CHECK_EVERY
+# frames. Each read waits until the card has run every frame queued before
+# it: reading every frame would make the host wait on each one, and its own
+# delays would reach the card; with eight frames queued ahead they do not.
+# Once every row is done, the frames up to the next read still run (at most
+# CHECK_EVERY - 1) and change nothing: at most 7 frames at the end of a
+# request that runs up to 2048. A stream's 25-frame segment reads 3 times.
+CHECK_EVERY = 8
+# A captured frame's trailing text has a multiple of this many rows (padded
+# with tts_pad, which a row takes past its text anyway), so texts of similar
+# length share one graph.
+TRAILING_BUCKET = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,6 +285,37 @@ def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device):
     return process_and_sample
 
 
+def _prefill(
+    talker_params: dict,
+    talker_cfg: TalkerConfig,
+    inputs_embeds: torch.Tensor,  # [B, S, D] left-padded prefix
+    pad_mask: torch.Tensor,       # [B, S]
+    *,
+    sampling: SamplingConfig,
+    max_cache_len: int,
+    generator: Optional[torch.Generator],
+    kv_int8: bool = False,
+) -> DecodeState:
+    """Prefill + first-token sample: the decode state before the first frame."""
+    b, s, _ = inputs_embeds.shape
+    device = inputs_embeds.device
+    k_cache, v_cache = talker_mod.alloc_kv_cache(
+        talker_cfg, b, max_cache_len, talker_params["norm"].dtype, device, kv_int8=kv_int8)
+    pre = talker_mod.talker_prefill(
+        talker_params, talker_cfg, inputs_embeds, pad_mask, k_cache, v_cache)
+    n_real = pad_mask.int().sum(dim=-1, dtype=torch.int32)
+    presence = torch.zeros((b, talker_cfg.vocab_size), dtype=torch.bool, device=device)
+    zeros = torch.zeros(b, dtype=torch.int32, device=device)
+    token0 = _processor(talker_cfg, sampling, device)(pre.logits, presence, zeros, generator)
+    presence.index_put_((torch.arange(b, device=device), token0), _true(device))
+    return DecodeState(
+        token=token0, hidden=pre.last_hidden, k_cache=pre.k_cache, v_cache=pre.v_cache,
+        presence=presence, eos=token0 == talker_cfg.codec_eos_token_id, num_gen=zeros,
+        prefix_len=torch.full((b,), s, dtype=torch.int32, device=device),
+        n_real=n_real, valid_from=s - n_real, generator=generator,
+    )
+
+
 def init_decode(
     talker_params: dict,
     talker_cfg: TalkerConfig,
@@ -286,35 +340,31 @@ def init_decode(
     result is ``(state, codes [B, first_segment, G])``, as from
     ``decode_segment``. ``step_limit`` (int or per row) caps each row's
     frames; it defaults to ``first_segment``."""
-    b, s, _ = inputs_embeds.shape
-    device = inputs_embeds.device
-    k_cache, v_cache = talker_mod.alloc_kv_cache(
-        talker_cfg, b, max_cache_len, talker_params["norm"].dtype, device, kv_int8=kv_int8)
-    pre = talker_mod.talker_prefill(
-        talker_params, talker_cfg, inputs_embeds, pad_mask, k_cache, v_cache)
-    n_real = pad_mask.int().sum(dim=-1, dtype=torch.int32)
-    presence = torch.zeros((b, talker_cfg.vocab_size), dtype=torch.bool, device=device)
-    zeros = torch.zeros(b, dtype=torch.int32, device=device)
-    token0 = _processor(talker_cfg, sampling, device)(pre.logits, presence, zeros, generator)
-    presence[torch.arange(b, device=device), token0] = True
-    state = DecodeState(
-        token=token0, hidden=pre.last_hidden, k_cache=pre.k_cache, v_cache=pre.v_cache,
-        presence=presence, eos=token0 == talker_cfg.codec_eos_token_id, num_gen=zeros,
-        prefix_len=torch.full((b,), s, dtype=torch.int32, device=device),
-        n_real=n_real, valid_from=s - n_real, generator=generator,
-    )
+    state = _prefill(talker_params, talker_cfg, inputs_embeds, pad_mask, sampling=sampling,
+                     max_cache_len=max_cache_len, generator=generator, kv_int8=kv_int8)
     if first_segment <= 0:
         return state
-    limit = _row_limit(first_segment if step_limit is None else step_limit, b, device)
-    body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                       trailing, limit, generator)
-    return _segment_loop(body, state, first_segment, limit, talker_cfg.num_code_groups)
+    limit = _row_limit(first_segment if step_limit is None else step_limit,
+                       inputs_embeds.shape[0], inputs_embeds.device)
+    return _decode(talker_params, st_params, talker_cfg, sampling, st_sampling, state,
+                   trailing, limit, first_segment)
+
+
+def _true(device) -> torch.Tensor:
+    """A bool True on ``device``: an indexed write of the Python value
+    would copy it from the host, which a CUDA graph capture refuses."""
+    return torch.ones((), dtype=torch.bool, device=device)
 
 
 def _row_limit(step_limit: Union[int, Sequence[int], torch.Tensor], b: int,
                device) -> torch.Tensor:
     """A frame budget (int or per row) as an int32 [B] tensor."""
     return torch.as_tensor(step_limit, dtype=torch.int32, device=device).expand(b)
+
+
+def _any_active(state: DecodeState, step_limit: torch.Tensor) -> torch.Tensor:
+    """Whether any row may still take a frame (device bool)."""
+    return (~state.eos & (state.num_gen < step_limit)).any()
 
 
 def _frame_body(
@@ -328,12 +378,17 @@ def _frame_body(
     generator: Optional[torch.Generator],
 ):
     """One frame of the AR loop: sub-talker → Σ-embed + trailing → talker
-    step → sample. Positions are per row (from ``num_gen``)."""
+    step → sample. Positions are per row (from ``num_gen``).
+
+    A frame in which no row is active changes nothing of the state and
+    returns zeros, as a loop that stopped before it would have left them.
+    The host reads no device value: the frame is captured as a CUDA graph."""
     eos_id = talker_cfg.codec_eos_token_id
     trailing_max = trailing.shape[1] - 1
     process_and_sample = _processor(talker_cfg, sampling, trailing.device)
     dtype = talker_params["norm"].dtype
     rows = torch.arange(trailing.shape[0], device=trailing.device)
+    true = _true(trailing.device)
 
     def body(st: DecodeState) -> Tuple[DecodeState, torch.Tensor]:
         active = ~st.eos & (st.num_gen < step_limit)
@@ -350,39 +405,203 @@ def _frame_body(
         emb = emb + trailing[rows, st.num_gen.clamp(max=trailing_max).long()]
 
         # 3) talker step at each row's own cache and rope position. Inactive
-        #    rows rewrite their current slot (masked out, harmless).
+        #    rows rewrite their next slot (masked out, harmless: a later real
+        #    frame writes it before it reads it); a row whose cache is full,
+        #    which takes no further frame, rewrites its last slot instead.
+        s_max = _cache_slots(st.k_cache)
         logits, hidden, kc, vc = talker_mod.talker_decode_step(
             talker_params, talker_cfg, emb.to(dtype), st.n_real + st.num_gen,
-            st.k_cache, st.v_cache, st.prefix_len + st.num_gen + 1, st.valid_from,
+            st.k_cache, st.v_cache, (st.prefix_len + st.num_gen + 1).clamp(max=s_max),
+            st.valid_from,
         )
 
         # 4) sample the next codebook-0 token.
         token = process_and_sample(logits, st.presence, st.num_gen + 1, generator)
         token = torch.where(active, token, st.token)
-        st.presence[rows, token] = True
+        st.presence.index_put_((rows, token), true)
         new_state = dataclasses.replace(
             st, token=token, hidden=torch.where(active[:, None], hidden, st.hidden),
             k_cache=kc, v_cache=vc, eos=st.eos | (token == eos_id), num_gen=num_gen,
         )
-        return new_state, frame
+        return new_state, frame.masked_fill(~active.any(), 0)
 
     return body
 
 
-def _segment_loop(body, state: DecodeState, segment: int, step_limit: torch.Tensor,
-                  g: int) -> Tuple[DecodeState, torch.Tensor]:
+def _cache_slots(cache: KVCache) -> int:
+    """S_max of a talker cache [L, B, S_max, KV, hd] (tensor or int8 dict)."""
+    return (cache["i8"] if isinstance(cache, dict) else cache).shape[2]
+
+
+def _frame_loop(body, state: DecodeState, segment: int, step_limit: torch.Tensor, g: int,
+                check: bool = True) -> Tuple[DecodeState, torch.Tensor]:
     """Run up to ``segment`` frames, collecting them into a [B, segment, G]
-    buffer (row b's valid frames are its num_gen). Ends early once every row
-    is done (EOS or its ``step_limit``); that check reads one flag from the
-    device per frame."""
+    buffer (row b's valid frames are its num_gen delta). With ``check``, the
+    loop ends once every row is done (EOS or its ``step_limit``), read from
+    the device every ``CHECK_EVERY`` frames; the frames between the point
+    where all rows are done and the read change nothing and leave zeros in
+    the buffer, so the result is that of a loop that stopped at once."""
     b = state.token.shape[0]
     buf = torch.zeros((b, segment, g), dtype=torch.int64, device=state.token.device)
     for tick in range(segment):
-        if not bool((~state.eos & (state.num_gen < step_limit)).any()):
+        if (check and tick and tick % CHECK_EVERY == 0
+                and not bool(_any_active(state, step_limit))):
             break
         state, frame = body(state)
         buf[:, tick] = frame
     return state, buf
+
+
+def _decode_eager(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
+                  sampling: SamplingConfig, st_sampling: SamplingConfig, state: DecodeState,
+                  trailing: torch.Tensor, step_limit: torch.Tensor, segment: int,
+                  check: bool = True) -> Tuple[DecodeState, torch.Tensor]:
+    """``_frame_loop`` over ``_frame_body``, each op run as it comes."""
+    body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
+                       trailing, step_limit, state.generator)
+    return _frame_loop(body, state, segment, step_limit, talker_cfg.num_code_groups, check)
+
+
+def _decode(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
+            sampling: SamplingConfig, st_sampling: SamplingConfig, state: DecodeState,
+            trailing: torch.Tensor, step_limit: torch.Tensor,
+            segment: int) -> Tuple[DecodeState, torch.Tensor]:
+    """Up to ``segment`` frames from ``state``, as ``_frame_loop`` runs
+    them: on the card, replays of one captured frame (``_FrameGraph``); on
+    the CPU, the same frames run eagerly."""
+    if not state.token.is_cuda:
+        return _decode_eager(talker_params, st_params, talker_cfg, sampling, st_sampling,
+                             state, trailing, step_limit, segment)
+    rows = trailing_rows(trailing)
+    cache = state.k_cache
+    key = ("frame", state.token.device, tuple(state.hidden.shape), state.hidden.dtype,
+           _cache_slots(cache), "int8" if isinstance(cache, dict) else cache.dtype,
+           rows, trailing.dtype, sampling, st_sampling, talker_cfg)
+    program = graphs.cached(key, (talker_params, st_params), lambda: _FrameGraph(
+        talker_params, st_params, talker_cfg, sampling, st_sampling, state, trailing,
+        step_limit, rows))
+    return program.run(state, trailing, step_limit, segment)
+
+
+# --------------------------------------------------------------------------
+# The decode on the card: one frame captured as a CUDA graph
+# --------------------------------------------------------------------------
+
+# The tensors of a decode state, in the order DecodeState lists them.
+STATE_FIELDS = ("token", "hidden", "k_cache", "v_cache", "presence", "eos", "num_gen",
+                "prefix_len", "n_real", "valid_from")
+
+
+def buffer_like(x: KVCache) -> KVCache:
+    """A contiguous uninitialised tensor (or int8 dict) like ``x``."""
+    if isinstance(x, dict):
+        return {k: buffer_like(v) for k, v in x.items()}
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
+
+
+def copy_into(dst: KVCache, src: KVCache) -> None:
+    """``src`` (a tensor or int8 dict) into ``dst`` in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            dst[k].copy_(src[k])
+    else:
+        dst.copy_(src)
+
+
+def clone_state(state: DecodeState) -> DecodeState:
+    """``state`` with every tensor copied."""
+    def clone(x):
+        return {k: v.clone() for k, v in x.items()} if isinstance(x, dict) else x.clone()
+
+    return dataclasses.replace(state, **{f: clone(getattr(state, f)) for f in STATE_FIELDS})
+
+
+def trailing_rows(trailing: torch.Tensor) -> int:
+    """The rows a captured program holds for ``trailing`` [B, T+1, D]."""
+    return -(-trailing.shape[1] // TRAILING_BUCKET) * TRAILING_BUCKET
+
+
+def fill_trailing(dst: torch.Tensor, trailing: torch.Tensor) -> None:
+    """``trailing`` [B, T+1, D] into ``dst`` [B, R >= T+1, D], the rows past
+    T+1 repeating the last, which is tts_pad for every row (``batch_prompts``):
+    the frame takes that row past a row's text either way."""
+    n = trailing.shape[1]
+    dst[:, :n].copy_(trailing)
+    dst[:, n:].copy_(trailing[:, -1:].expand(-1, dst.shape[1] - n, -1))
+
+
+class _FrameGraph:
+    """One frame of the decode loop captured on the card, with the decode
+    state it advances in place (one configuration: batch, cache, trailing
+    bucket, dtypes, sampling configs, parameter trees).
+
+    ``run`` copies the caller's state into the buffers, unless it is the
+    state the last ``run`` returned, whose tensors are these buffers (the
+    stream's next segment). A state passed in is consumed, as the JAX
+    package donates it; if the buffers still hold the state returned to
+    another caller, that state first gets tensors of its own."""
+
+    def __init__(self, talker_params, st_params, talker_cfg, sampling, st_sampling,
+                 state: DecodeState, trailing: torch.Tensor, step_limit: torch.Tensor,
+                 rows: int):
+        b, d = state.hidden.shape
+        device = state.token.device
+        self.state = DecodeState(**{f: buffer_like(getattr(state, f)) for f in STATE_FIELDS})
+        self.trailing = torch.empty((b, rows, d), dtype=trailing.dtype, device=device)
+        self.limit = torch.empty(b, dtype=torch.int32, device=device)
+        self.frame = torch.zeros((b, talker_cfg.num_code_groups), dtype=torch.int64,
+                                 device=device)
+        self.more = torch.zeros((), dtype=torch.bool, device=device)
+        self.host_more = torch.zeros((), dtype=torch.bool, pin_memory=True)
+        self.lent = None
+        generator = (torch.Generator(device=device)
+                     if sampling.do_sample or st_sampling.do_sample else None)
+        body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
+                           self.trailing, self.limit, generator)
+        st = self.state
+
+        def frame():
+            new, codes = body(st)
+            for f in ("token", "hidden", "eos", "num_gen"):
+                getattr(st, f).copy_(getattr(new, f))
+            self.frame.copy_(codes)
+            self.more.copy_(_any_active(new, self.limit))
+
+        self._load(state, trailing, step_limit)  # the warm-up frame runs on it
+        self.graph = graphs.Graph(frame, generator)
+
+    def _load(self, state: DecodeState, trailing: torch.Tensor,
+              step_limit: torch.Tensor) -> None:
+        st = self.state
+        if state.token is not st.token:
+            holder = self.lent() if self.lent is not None else None
+            if holder is not None and holder.token is st.token:
+                own = clone_state(holder)
+                for f in STATE_FIELDS:
+                    setattr(holder, f, getattr(own, f))
+            for f in STATE_FIELDS:
+                copy_into(getattr(st, f), getattr(state, f))
+        fill_trailing(self.trailing, trailing)
+        self.limit.copy_(step_limit)
+
+    def run(self, state: DecodeState, trailing: torch.Tensor, step_limit: torch.Tensor,
+            segment: int) -> Tuple[DecodeState, torch.Tensor]:
+        """``_frame_loop`` by replays: the flag of whether any row is still
+        active is read every CHECK_EVERY frames, after the frames before it
+        are queued."""
+        self._load(state, trailing, step_limit)
+        buf = torch.zeros((self.frame.shape[0], segment, self.frame.shape[1]),
+                          dtype=torch.int64, device=self.frame.device)
+        with self.graph.drawing_from(state.generator):
+            for tick in range(segment):
+                if (tick and tick % CHECK_EVERY == 0
+                        and not graphs.read_flag(self.more, self.host_more)):
+                    break
+                self.graph.replay()
+                buf[:, tick] = self.frame
+        out = dataclasses.replace(self.state, generator=state.generator)
+        self.lent = weakref.ref(out)
+        return out, buf
 
 
 def decode_segment(
@@ -403,13 +622,14 @@ def decode_segment(
     frames (max_new_tokens), so a partial last segment needs nothing new; by
     default each row may take the whole segment. The KV cache (float or
     int8 dicts), the sampling generator and the repetition history carry
-    over in ``state``."""
+    over in ``state``, which is consumed: on the card the returned state's
+    tensors are the captured frame's buffers, which the next call with
+    another state rewrites once this one holds copies of its own."""
     b = state.token.shape[0]
     device = state.token.device
     limit = _row_limit(state.num_gen + segment if step_limit is None else step_limit, b, device)
-    body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                       trailing, limit, state.generator)
-    return _segment_loop(body, state, segment, limit, talker_cfg.num_code_groups)
+    return _decode(talker_params, st_params, talker_cfg, sampling, st_sampling, state,
+                   trailing, limit, segment)
 
 
 def generate_codes(
@@ -445,9 +665,9 @@ def generate_codes(
         max_cache_len=s + max_new_tokens, generator=generator, kv_int8=kv_int8,
         st_params=st_params, st_sampling=st_sampling, first_segment=max_new_tokens,
         trailing=trailing, step_limit=limit)
-    num_gen = state.num_gen
+    num_gen = state.num_gen.clone()
     if trim_last_on_budget:
         # max(0, …): a per-row step_limit of 0 yields an empty row.
         num_gen = torch.where(state.eos, num_gen,
                               torch.minimum(num_gen, limit - 1).clamp(min=0))
-    return GenOutput(codes, num_gen, state.eos)
+    return GenOutput(codes, num_gen, state.eos.clone())

@@ -3,10 +3,11 @@
 
 Suppress mask, repetition penalty over a vocab presence mask, temperature,
 top-k and top-p, then a categorical draw from an explicit
-``torch.Generator``. ``torch.Generator`` and ``jax.random`` give different
-numbers from one seed, so sampled traces agree with the JAX package only in
-their semantics; greedy decoding is an argmax over identically processed
-logits and agrees token for token.
+``torch.Generator`` (an exponential race, which a CUDA graph can capture).
+``torch.Generator`` and ``jax.random`` give different numbers from one seed,
+so sampled traces agree with the JAX package only in their semantics;
+greedy decoding is an argmax over identically processed logits and agrees
+token for token.
 """
 
 from __future__ import annotations
@@ -76,14 +77,21 @@ def sample_token(
     generator: Optional[torch.Generator],
 ) -> torch.Tensor:
     """Returns [B] int64 token ids. ``generator`` lives on the logits' device
-    and is only read when sampling."""
+    and is only read when sampling.
+
+    The draw is an exponential race, argmax of p / E with E ~ Exp(1) drawn
+    per entry: the categorical draw ``torch.multinomial(probs, 1)`` makes
+    (the same numbers from the same generator), written out so that no host
+    check of the probabilities runs and the draw can be captured in a CUDA
+    graph."""
     if not cfg.do_sample:
         return torch.argmax(logits, dim=-1)
     warped = logits / max(cfg.temperature, 1e-5)
     warped = _top_k_filter(warped, cfg.top_k)
     warped = _top_p_filter(warped, cfg.top_p)
     probs = torch.softmax(warped, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return (probs / race).argmax(dim=-1)
 
 
 def build_suppress_mask(vocab_size: int, eos_id: int, tail: int = 1024,

@@ -7,11 +7,14 @@ Tokenize → build dual-track prompts → prefill + decode loop → per-row EOS
 trim → chunked codec decode → waveforms. Streaming yields audio chunks as the
 decode loop's segments finish. The model runs on one device, CUDA unless
 ``from_pretrained`` is given another; ``codec_dtype=torch.bfloat16`` runs the
-codec in bf16, its narrow vocoder blocks as fused kernels.
+codec in bf16, its narrow vocoder blocks as fused kernels. On the card the
+decode loop replays a captured frame (``generate.py``), and a stream's first
+packet and its later codec windows are CUDA graphs as well (``graphs.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
@@ -19,15 +22,22 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from qwen_tts_tpu_torch import graphs
 from qwen_tts_tpu_torch.config import TTSConfig
 from qwen_tts_tpu_torch.generate import (
     GenerationParams,
     Prompt,
+    _decode_eager,
+    _prefill,
+    _row_limit,
     batch_prompts,
+    buffer_like,
     build_prompt,
+    clone_state,
     decode_segment,
+    fill_trailing,
     generate_codes,
-    init_decode,
+    trailing_rows,
 )
 from qwen_tts_tpu_torch.io.loader import load_checkpoint
 from qwen_tts_tpu_torch.models import codec as codec_mod
@@ -45,6 +55,25 @@ _HARD_DEFAULTS = dict(
 )
 
 
+def _first_packet_eager(
+    talker_params: dict, st_params: dict, codec_params: dict, talker_cfg, dec_cfg,
+    embeds: torch.Tensor, mask: torch.Tensor, trailing: torch.Tensor, *,
+    sampling, st_sampling, max_cache_len: int, generator: Optional[torch.Generator],
+    first_segment: int, step_limit: Union[int, torch.Tensor], kv_int8: bool = False,
+    check: bool = True,
+):
+    """``_first_packet_program`` with each op run as it comes: the prefill,
+    the first frames (``check``: as ``_frame_loop`` reads its flag) and the
+    codec decode of their window, in turn."""
+    state = _prefill(talker_params, talker_cfg, embeds, mask, sampling=sampling,
+                     max_cache_len=max_cache_len, generator=generator, kv_int8=kv_int8)
+    limit = _row_limit(step_limit, embeds.shape[0], embeds.device)
+    state, seg = _decode_eager(talker_params, st_params, talker_cfg, sampling, st_sampling,
+                               state, trailing, limit, first_segment, check=check)
+    window = seg[:, :first_segment, : dec_cfg.num_quantizers].clamp(min=0)
+    return state, seg, codec_mod.codec_decode(codec_params, dec_cfg, window)
+
+
 def _first_packet_program(
     talker_params: dict, st_params: dict, codec_params: dict, talker_cfg, dec_cfg,
     embeds: torch.Tensor, mask: torch.Tensor, trailing: torch.Tensor, *,
@@ -52,16 +81,90 @@ def _first_packet_program(
     first_segment: int, step_limit: int, kv_int8: bool = False,
 ):
     """Prefill + the first decode segment + the codec decode of its frames:
-    request to first audio. The JAX package fuses these into one device
-    program; eager PyTorch runs them in turn. Returns (state, codes
-    [B, first_segment, G], waveform [B, first_segment * upsample])."""
-    state, seg = init_decode(
-        talker_params, talker_cfg, embeds, mask, sampling=sampling,
-        max_cache_len=max_cache_len, generator=generator, kv_int8=kv_int8,
-        st_params=st_params, st_sampling=st_sampling, first_segment=first_segment,
-        trailing=trailing, step_limit=step_limit)
-    window = seg[:, :first_segment, : dec_cfg.num_quantizers].clamp(min=0)
-    return state, seg, codec_mod.codec_decode(codec_params, dec_cfg, window)
+    request to first audio. Returns (state, codes [B, first_segment, G],
+    waveform [B, first_segment * upsample]). On the card all of it is one
+    CUDA graph replay (``_FirstPacketGraph``), as the JAX package runs it as
+    one device program; on the CPU it runs eagerly."""
+    kw = dict(sampling=sampling, st_sampling=st_sampling, max_cache_len=max_cache_len,
+              first_segment=first_segment, kv_int8=kv_int8)
+    if not embeds.is_cuda:
+        return _first_packet_eager(talker_params, st_params, codec_params, talker_cfg, dec_cfg,
+                                   embeds, mask, trailing, generator=generator,
+                                   step_limit=step_limit, **kw)
+    rows = trailing_rows(trailing)
+    key = ("first_packet", embeds.device, tuple(embeds.shape), embeds.dtype, rows,
+           trailing.dtype, talker_cfg, dec_cfg, tuple(sorted(kw.items())))
+    program = graphs.cached(key, (talker_params, st_params, codec_params), lambda: (
+        _FirstPacketGraph(talker_params, st_params, codec_params, talker_cfg, dec_cfg, embeds,
+                          mask, trailing, step_limit, rows, **kw)))
+    return program.run(embeds, mask, trailing, step_limit, generator)
+
+
+class _FirstPacketGraph:
+    """``_first_packet_eager`` (without the flag read: its frames all run)
+    captured as one CUDA graph for one prompt bucket, trailing bucket,
+    ``first_segment``, ``max_cache_len``, dtypes, ``kv_int8`` and sampling
+    configs. The prompt goes into its static inputs before each replay; its
+    outputs are copied out after it."""
+
+    def __init__(self, talker_params, st_params, codec_params, talker_cfg, dec_cfg,
+                 embeds, mask, trailing, step_limit, rows, **kw):
+        b, _, d = embeds.shape
+        device = embeds.device
+        self.embeds = buffer_like(embeds)
+        self.mask = buffer_like(mask)
+        self.trailing = torch.empty((b, rows, d), dtype=trailing.dtype, device=device)
+        self.limit = torch.empty(b, dtype=torch.int32, device=device)
+        generator = (torch.Generator(device=device)
+                     if kw["sampling"].do_sample or kw["st_sampling"].do_sample else None)
+
+        def program():
+            return _first_packet_eager(
+                talker_params, st_params, codec_params, talker_cfg, dec_cfg, self.embeds,
+                self.mask, self.trailing, generator=generator, step_limit=self.limit,
+                check=False, **kw)
+
+        self._load(embeds, mask, trailing, step_limit)  # the warm-up run runs on it
+        self.graph = graphs.Graph(program, generator)
+
+    def _load(self, embeds, mask, trailing, step_limit) -> None:
+        self.embeds.copy_(embeds)
+        self.mask.copy_(mask)
+        fill_trailing(self.trailing, trailing)
+        self.limit.fill_(step_limit)
+
+    def run(self, embeds, mask, trailing, step_limit, generator):
+        self._load(embeds, mask, trailing, step_limit)
+        with self.graph.drawing_from(generator):
+            self.graph.replay()
+        state, seg, wav = self.graph.outputs
+        return (dataclasses.replace(clone_state(state), generator=generator), seg.clone(),
+                wav.clone())
+
+
+def _codec_window(codec_params: dict, dec_cfg, window: torch.Tensor) -> torch.Tensor:
+    """``codec_decode`` of one stream window [B, T, Q]: on the card a replay
+    of a graph captured once per window shape (every window after the first
+    packet has the same), on the CPU eager."""
+    if not window.is_cuda:
+        return codec_mod.codec_decode(codec_params, dec_cfg, window)
+    key = ("codec_window", window.device, tuple(window.shape), window.dtype, dec_cfg)
+    return graphs.cached(key, (codec_params,),
+                         lambda: _CodecGraph(codec_params, dec_cfg, window)).run(window)
+
+
+class _CodecGraph:
+    """``codec_decode`` captured as one CUDA graph for one window shape."""
+
+    def __init__(self, codec_params: dict, dec_cfg, window: torch.Tensor):
+        self.window = window.clone()
+        self.graph = graphs.Graph(
+            lambda: codec_mod.codec_decode(codec_params, dec_cfg, self.window))
+
+    def run(self, window: torch.Tensor) -> torch.Tensor:
+        self.window.copy_(window)
+        self.graph.replay()
+        return self.graph.outputs.clone()
 
 
 class Qwen3TTSModel:
@@ -125,7 +228,9 @@ class Qwen3TTSModel:
         ``talker=True`` also makes the talker trunk int8; ``kv=True`` keeps the
         talker KV cache as int8 dicts (per-token, per-head f32 scales). Greedy
         codes are no longer those of the float model: a serving mode, not
-        the parity default."""
+        the parity default. Drops the CUDA graphs captured on the trees it
+        replaces."""
+        graphs.drop(self.talker_params, self.subtalker_params)
         st = dict(self.subtalker_params)
         st["trunk_packed"] = pack_subtalker_weights(quantize_trunk_int8(st.pop("trunk")))
         self.subtalker_params = quantize_subtalker_tables_int8(st)
@@ -391,7 +496,7 @@ class Qwen3TTSModel:
                     ctx = min(left_context_frames, emitted)
                     window = np.zeros((1, left_context_frames + chunk_frames, nq), np.int64)
                     window[0, : ctx + emit] = history[emitted - ctx : emitted + emit]
-                    wav = codec_mod.codec_decode(
+                    wav = _codec_window(
                         self.codec_params, dec_cfg, torch.as_tensor(window, device=self.device)
                     )[0, ctx * up : (ctx + emit) * up].cpu().numpy()
                 emitted += emit

@@ -625,3 +625,66 @@ def test_generate_batch_matches_single_on_the_card(device, tmp_path):
         assert n == int(both.num_gen[i]) == 4  # the budget-exhausted last frame trimmed
         np.testing.assert_array_equal(solo.codes[0, :n].cpu().numpy(),
                                       both.codes[i, :n].cpu().numpy())
+
+
+def _tiny_card_model(device, tmp_path):
+    """The tiny config with 64-wide heads (the decode-attention kernel takes
+    64 and 128), f32, on the card."""
+    import dataclasses
+
+    from qwen_tts_tpu_torch.config import tiny_tts_config
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    cfg = tiny_tts_config()
+    tk = dataclasses.replace(
+        cfg.talker, head_dim=64, mrope_section=(16, 8, 8),
+        code_predictor=dataclasses.replace(cfg.talker.code_predictor, head_dim=64))
+    cfg = dataclasses.replace(cfg, talker=tk)
+    chip_smoke.write_checkpoint(str(tmp_path), cfg, seed=0, device=device.type)
+    return Qwen3TTSModel.from_pretrained(str(tmp_path), talker_dtype=torch.float32,
+                                         device=device, load_tokenizer=False)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_replayed_frames_equal_the_eager_frames(device, tmp_path, batch):
+    """The decode loop by replays of one captured frame against the same
+    loop run eagerly on the card: the same codes, buffer and state, bit for
+    bit; after N replays each kernel counter has grown by N x the launches
+    the frame captured."""
+    import dataclasses
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch import graphs
+
+    model = _tiny_card_model(device, tmp_path)
+    tk = model.cfg.talker
+    prompts = [gen_mod.build_prompt(model.talker_params, model.cfg,
+                                    [1, 2, 3] + list(range(10, 10 + n)) + [4, 5, 1, 2, 3],
+                                    language="auto", speaker="aiden")
+               for n in (4, 7, 3, 9)[:batch]]
+    e, m, t, _ = gen_mod.batch_prompts(prompts, bucket=8)
+    # EOS banned: every row takes all 12 frames, so the loop replays 12.
+    gp = dataclasses.replace(gen_mod.GenerationParams(max_new_tokens=12).greedy(),
+                             min_new_tokens=13)
+    args = (model.talker_params, model.subtalker_params, tk, gp.talker_sampling(),
+            gp.subtalker_sampling())
+    limit = torch.full((batch,), 12, dtype=torch.int32, device=device)
+
+    def start():
+        return gen_mod._prefill(model.talker_params, tk, e, m, sampling=gp.talker_sampling(),
+                                max_cache_len=e.shape[1] + 12, generator=None)
+
+    eager, eager_buf = gen_mod._decode_eager(*args, start(), t, limit, 12)
+    graphs.clear()
+    gen_mod._decode(*args, start(), t, limit, 1)  # captures the frame
+    (kind, program), = graphs.programs()
+    assert kind == "frame" and program.graph.launches["decode_attention"] == (
+        tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers)
+    before = decode_attention.launches
+    replayed, buf = gen_mod._decode(*args, start(), t, limit, 12)
+    assert decode_attention.launches - before == 12 * program.graph.launches["decode_attention"]
+    torch.testing.assert_close(buf, eager_buf, rtol=0, atol=0)
+    for f in ("token", "hidden", "presence", "eos", "num_gen"):
+        torch.testing.assert_close(getattr(replayed, f), getattr(eager, f), rtol=0, atol=0)
+    torch.testing.assert_close(replayed.k_cache, eager.k_cache, rtol=0, atol=0)
+    graphs.clear()
