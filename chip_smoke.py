@@ -18,15 +18,20 @@ Phases, each of which exits non-zero on failure:
    launches bit-identical, timed at B=4 and B=32 with its grid barrier; the
    vocoder block: both geometries, B 1/4, lengths one row under, at and over
    a tile and of several tiles, the stream's first packet and windows; the
-   int8-weight GEMM: the talker's projections and the LM head, M 1/4/32/128,
-   both dtypes), then its time beside the plain version, a library
-   yardstick where one exists and the bound (the vocoder block is held
-   against its plain version, and two launches against each other, at its
-   timed shapes too; its bound counts the SnakeBeta instructions of the
-   built kernel's SASS beside bytes and tensor-core operations);
+   int8-weight GEMM: the talker layer's 4 launches (q|k|v and gate|up
+   grouped, each grouped output the bits of its single launch) and the LM
+   head, M 1/4/32/128, both dtypes), then its time beside the plain
+   version, a library yardstick where one exists and the bound (the
+   vocoder block is held against its plain version, and two launches
+   against each other, at its timed shapes too; its bound counts the
+   SnakeBeta instructions of the built kernel's SASS beside bytes and
+   tensor-core operations; the int8 GEMM's launches are timed over 20
+   layers' weights beside the same products as single launches, the cast +
+   cuBLAS route and torch._weight_int8pack_mm, with a per-block timeline);
 3b. batch invariance: a row's bits alone and among others, on the card:
    decode attention (both caches; B 1/4/32; S_max 97 and 2080; moved by
-   left padding), the micro-step (B 1/4/32) and the int8 GEMM (M 1/4/32);
+   left padding), the micro-step (B 1/4/32) and the int8 GEMM's grouped and
+   single launches (M 1/4/32);
 4. path: writes a random-weight checkpoint at the flagship 12 Hz dims,
    loads it with ``Qwen3TTSModel.from_pretrained`` and runs
    ``generate_custom_voice`` for a batch of 4 (talker bf16, codec f32,
@@ -44,8 +49,9 @@ Phases, each of which exits non-zero on failure:
 6. serving: the same checkpoint and texts after
    ``quantize_for_serving(talker=True, kv=True)``; the micro-step kernel must
    launch exactly frames x groups times, the int8-cache attention frames x
-   talker layers times, the int8 GEMM (prefill + frames) x talker layers x 7
-   + frames x 15 LM heads, the float-cache attention not at all; no int8
+   talker layers times, the int8 GEMM (prefill + frames) x talker layers x 4
+   (q|k|v, o, gate|up, down) + frames x 15 LM heads, the float-cache
+   attention not at all; no int8
    weight may be cast whole; each text's greedy codes alone against its row
    of the batch of 4 (reported as rows equal / 4); timed as phase 4;
 7. serving parity: phase 5 with int8 weights (``quantize_for_serving(
@@ -74,7 +80,10 @@ Phases, each of which exits non-zero on failure:
    last row's end); sampled, one seed twice identical, another seed
    different, graph == eager; the B=1 first packet one graph replay, codes
    equal to the eager three-stage program's and its waveform within
-   ``BF16_CODEC_REL_L2``. Each phase logs its graphs' capture cost.
+   ``BF16_CODEC_REL_L2``. Each phase logs its graphs' capture cost; each
+   mode times the replayed segment five times (ms a frame, median) and
+   profiles one replay (device busy a frame, the int8 GEMM's device time a
+   frame).
 
 The line before the last holds the kernels' JSON records; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``qwen_tts_tpu``.
@@ -1129,17 +1138,20 @@ def vocoder_block_library(x, block: dict, rate: int):
     return h.transpose(1, 2)
 
 
-def _device_us(fn, name: str, iters: int = 5, per_call: int = 1) -> float:
+def _device_us(fn, name: str, iters: int = 5, per_call: int = 1, merge: bool = False) -> float:
     """Mean device time (us) per call of the kernels whose name holds
     ``name`` over ``iters`` calls, from torch.profiler. Each such kernel is
-    launched ``per_call`` times a call. The profiler can miss the kernels of
+    launched ``per_call`` times a call; with ``merge`` all kernels so named
+    count as one, their launches in start order (a kernel whose template
+    instances share a call). The profiler can miss the kernels of
     the first calls after it starts, so it records 2 x ``iters`` calls and
     counts each kernel's last ``iters`` x ``per_call`` launches. A profile
-    that saw fewer launches of a kernel than that is never used: it is taken
-    again, up to three times in all (on the H100 a full chip_smoke run has
-    seen such a profile keep 18 and 25 of 100 launches, where the same
-    launches profiled alone were all kept); it fails when none saw them all,
-    or when it saw no such kernel."""
+    that saw fewer launches of a kernel than that, or none, is never used:
+    it is taken again, up to three times in all (on the H100 a full
+    chip_smoke run has seen such a profile keep 18 and 25 of 100 launches,
+    where the same launches profiled alone were all kept, and one profile
+    of the plain int8 route keep no device event at all); it fails when none
+    saw them all."""
     from collections import defaultdict
 
     import torch
@@ -1156,17 +1168,19 @@ def _device_us(fn, name: str, iters: int = 5, per_call: int = 1) -> float:
         launches = defaultdict(list)
         for e in prof.events():
             if e.device_type == DeviceType.CUDA and name in e.name:
-                launches[e.name].append((e.time_range.start, e.time_range.elapsed_us()))
+                launches[name if merge else e.name].append(
+                    (e.time_range.start, e.time_range.elapsed_us()))
         if not launches:
-            fail(f"the profiler saw no kernel named like {name!r}")
+            log(f"profile {attempt + 1} of 3 saw no kernel named like {name!r}; taken again")
+            continue
         short = {k: len(r) for k, r in launches.items() if len(r) < want}
         if not short:
             return sum(sum(us for _, us in sorted(runs)[-want:])
                        for runs in launches.values()) / iters
         log(f"profile {attempt + 1} of 3 kept too few launches ({list(short.values())} of the "
             f"{want} of the last {iters} calls: {[k[:60] for k in short]}); taken again")
-    fail(f"the profiler saw fewer launches than the {want} of the last {iters} calls in three "
-         f"profiles")
+    fail(f"the profiler saw no kernel named like {name!r}, or fewer launches than the {want} of "
+         f"the last {iters} calls, in three profiles")
 
 
 def hold_vocoder_block(x, block: dict, rate: int, label: str, split: int = 0) -> float:
@@ -1432,92 +1446,279 @@ def phase_kernels_vocoder_block():
     return rec
 
 
-# The talker's int8 projections at the flagship dims, (name, K, N, per
-# layer), and the sub-talker's int8 LM head (K, N; f32 logits).
+# The talker's int8 projections at the flagship dims, (name, K, N), and the
+# sub-talker's int8 LM head (K, N; f32 logits).
 TALKER_PROJECTIONS = (("wq", 1024, 1024), ("wk", 1024, 128), ("wv", 1024, 128),
                       ("wo", 1024, 1024), ("gate", 1024, 2048), ("up", 1024, 2048),
                       ("down", 2048, 1024))
 LM_HEAD = (1024, 2048)
+# A talker layer's int8 GEMM launches: the projections that read one x are
+# one launch.
+LAYER_LAUNCHES = (("qkv", ("wq", "wk", "wv")), ("o", ("wo",)), ("gate_up", ("gate", "up")),
+                  ("down", ("down",)))
 # bf16: the product rounds to bf16 after a sum in another order, one ulp
 # (at most 2^-7 of the largest value), times the scale; f32: order only.
 INT8_MATMUL_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
-INT8_ROTATE = 20  # one weight per talker layer, so that the bytes come from HBM
+# One layer's weights per talker layer, so that the bytes come from HBM, as
+# in a decode step (20 layers x 8.65 MB > the 50 MB L2).
+INT8_ROTATE = 20
 
 
-def phase_kernels_int8_matmul():
-    """int8_matmul against its plain version (cast + cuBLAS) at the talker's
-    seven projection shapes and the LM head's, M 1/4/32/128, f32 and bf16;
-    then each timed at M=4 (a decode step of the serving path) and M=128
-    (its prefill), bf16, over 20 weights in turn, beside the byte bound and
-    the plain route's device time. Returns the JSON record (the per-step sum
-    of the talker's 140 projections at M=4)."""
+def _int8_layers(gen, count: int):
+    """``count`` talker layers' int8 weights, {name: (w_i8 [K, N], s)}."""
     import torch
 
     from qwen_tts_tpu_torch.models.trunk import quantize_int8
-    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
 
-    gen = torch.Generator(device="cuda").manual_seed(6)
+    return [{name: quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+             for name, k, n in TALKER_PROJECTIONS} for _ in range(count)]
+
+
+def _int8_bytes(x, weights, f32_out: bool) -> int:
+    """Bytes one launch must move: x once, each int8 weight and its bf16
+    scales once, each output once."""
+    m = x.numel() // x.shape[-1]
+    out_item = 4 if f32_out else x.element_size()
+    return x.numel() * x.element_size() + sum(
+        w.numel() + 2 * w.shape[1] + m * w.shape[1] * out_item for w, _ in weights)
+
+
+def int8_timeline(layers, kind: str, names, m: int = 4) -> dict:
+    """``kind``'s launch at M=``m`` bf16, timed (``timeline=``) over the
+    layers' weights in turn, one launch each: the median over the launches of
+    each field of ``timeline_breakdown`` (us)."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import (
+        TIMELINE_SLOTS, int8_matmul_group, launch_blocks, timeline_breakdown)
+
+    k = layers[0][names[0]][0].shape[0]
+    x = torch.randn(m, k, device="cuda").bfloat16()
+    weights = [[layer[n] for n in names] for layer in layers]
+    timeline = torch.zeros(launch_blocks(x, weights[0]), TIMELINE_SLOTS, dtype=torch.int64,
+                           device="cuda")
+    int8_matmul_group(x, weights[0], timeline=timeline)  # warm-up
+    parts = []
+    for group in weights[1:] + weights[:1]:
+        int8_matmul_group(x, group, timeline=timeline)
+        torch.cuda.synchronize()
+        parts.append(timeline_breakdown(timeline))
+    return _median_breakdown(parts)
+
+
+def _median_breakdown(parts) -> dict:
+    out = {}
+    for key, value in parts[0].items():
+        if isinstance(value, dict):
+            out[key] = {s: round(statistics.median(p[key][s] for p in parts), 3) for s in value}
+        else:
+            out[key] = round(statistics.median(p[key] for p in parts), 3)
+    return out
+
+
+def check_int8_matmul(layers, head) -> float:
+    """Grouped and single launches at the talker's launches and the LM
+    head's, M 1/4/32/128, f32 and bf16: one launch counted per call; each
+    grouped output the bits of its single launch; each within
+    INT8_MATMUL_TOL of the plain version. Returns the largest error."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import (
+        int8_matmul, int8_matmul_group, int8_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
     worst = 0.0
-    shapes = [(n, k, nn, False) for n, k, nn in TALKER_PROJECTIONS] + [("lm_head", *LM_HEAD, True)]
-    for name, k, n, f32_out in shapes:
-        w_i8, s = quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+    launches = [(kind, [layers[0][n] for n in names], False) for kind, names in LAYER_LAUNCHES]
+    for kind, weights, f32_out in launches + [("lm_head", [head], True)]:
+        k = weights[0][0].shape[0]
         for m in (1, 4, 32, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
                 before = int8_matmul.launches
-                got = int8_matmul(x, w_i8, s, f32_out)
+                got = int8_matmul_group(x, weights, f32_out)
                 torch.cuda.synchronize()
                 if int8_matmul.launches != before + 1:
-                    fail("int8_matmul did not count its launch")
-                want = int8_matmul_plain(x, w_i8, s, f32_out)
-                err = (got.float() - want.float()).abs().max().item()
-                limit = INT8_MATMUL_TOL[str(dtype).split(".")[1]] * want.float().abs().max().item()
-                log(f"kernel check: int8_matmul {name} K={k} N={n} M={m} {dtype}"
-                    f"{' f32 logits' * f32_out}: max_abs_err={err:.3g} (tol {limit:.3g})")
-                if not err <= limit or got.dtype != want.dtype:
-                    fail(f"int8_matmul {name} M={m} {dtype} disagrees with its plain version")
-                worst = max(worst, err)
-    records, step = [], {"kernel_device_ms": 0.0, "plain_device_ms": 0.0, "bound_ms": 0.0}
-    for name, k, n in TALKER_PROJECTIONS + (("lm_head", *LM_HEAD),):
-        f32_out = name == "lm_head"
-        weights = [quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
-                   for _ in range(INT8_ROTATE)]
-        for m in (4, 128):
+                    fail("int8_matmul_group did not count its one launch")
+                alone = [int8_matmul(x, w, s, f32_out) for w, s in weights]
+                same = all(torch.equal(a, b) for a, b in zip(got, alone))
+                errs = []
+                for (w, s), y in zip(weights, got):
+                    want = int8_matmul_plain(x, w, s, f32_out)
+                    err = (y.float() - want.float()).abs().max().item()
+                    limit = INT8_MATMUL_TOL[str(dtype).split(".")[1]] * \
+                        want.float().abs().max().item()
+                    if not err <= limit or y.dtype != want.dtype or y.shape != want.shape:
+                        fail(f"int8_matmul {kind} M={m} {dtype}: error {err:.3g} over {limit:.3g}")
+                    errs.append(err)
+                    worst = max(worst, err)
+                log(f"kernel check: int8_matmul {kind} K={k} N={[w.shape[1] for w, _ in weights]}"
+                    f" M={m} {dtype}{' f32 logits' * f32_out}: max_abs_err "
+                    f"{max(errs):.3g} (tol {INT8_MATMUL_TOL[str(dtype).split('.')[1]]} x "
+                    f"max|ref|); grouped == single launches: {same}")
+                if not same:
+                    fail(f"int8_matmul {kind} M={m} {dtype}: a grouped output differs from its "
+                         f"single launch")
+    return worst
+
+
+def _int8_library(x, w_nk, s_flat):
+    """The library yardstick: torch._weight_int8pack_mm (bf16 x, the weight
+    as an [N, K] int8 copy made outside the timed region, [N] scales)."""
+    import torch
+
+    return torch._weight_int8pack_mm(x, w_nk, s_flat)
+
+
+def probe_int8_library(layers):
+    """Whether torch._weight_int8pack_mm runs on the card: None, or its
+    error."""
+    import torch
+
+    w, s = layers[0]["wq"]
+    x = torch.randn(4, w.shape[0], device="cuda").bfloat16()
+    try:
+        y = _int8_library(x, w.t().contiguous(), s.reshape(-1).contiguous())
+        torch.cuda.synchronize()
+    except Exception as e:  # reported: the yardstick is then "none"
+        return f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+    log(f"library: torch._weight_int8pack_mm runs on the card, {tuple(y.shape)} {y.dtype}")
+    return None
+
+
+def time_int8_matmul(layers, heads, library_error) -> dict:
+    """The serving step's int8 GEMM launches timed over the 20 layers'
+    weights in turn, bf16: each launch kind at M=4 (a decode step) and M=128
+    (a prefill) by CUDA events over back-to-back launches and by the
+    profiler's device time, beside its byte bound; each single projection
+    the same way beside the plain cast + cuBLAS route and the library's
+    torch._weight_int8pack_mm; then a whole layer, its 4 launches and the
+    7 single launches of the same products back to back. Returns the rows
+    and the step sums (20 layers)."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import (
+        int8_matmul, int8_matmul_group, int8_matmul_plain)
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {"per_launch": [], "projections": []}
+    kinds = [(kind, names, False) for kind, names in LAYER_LAUNCHES] + [("lm_head", None, True)]
+    heads = [(head,) for head in heads]
+    for m in (4, 128):
+        for kind, names, f32_out in kinds:
+            groups = heads if names is None else [[layer[n] for n in names] for layer in layers]
+            x = torch.randn(m, groups[0][0][0].shape[0], generator=gen, device="cuda").bfloat16()
+            call = _rotating(lambda *ws: int8_matmul_group(x, ws, f32_out), groups)
+            rec = {"launch": kind, "M": m, "N": [w.shape[1] for w, _ in groups[0]],
+                   "ms": _time_ms(call),
+                   "device_ms": _device_us(call, "int8_matmul_kernel", iters=40,
+                                           merge=True) / 1e3,
+                   "bound_ms": _int8_bytes(x, groups[0], f32_out) / H100_BYTES_PER_S * 1e3}
+            log(f"kernel time: int8_matmul launch {json.dumps(rec)}")
+            rows["per_launch"].append(rec)
+        for name, k, n in TALKER_PROJECTIONS + (("lm_head", *LM_HEAD),):
+            f32_out = name == "lm_head"
+            weights = heads if f32_out else [(layer[name],) for layer in layers]
             x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
-            kernel = _rotating(lambda w, s: int8_matmul(x, w, s, f32_out), weights)
-            plain = _rotating(lambda w, s: int8_matmul_plain(x, w, s, f32_out), weights)
-            moved = k * n + 2 * n + 2 * m * k + m * n * (4 if f32_out else 2)
+            kernel = _rotating(lambda ws: int8_matmul(x, *ws, f32_out), weights)
+            plain = _rotating(lambda ws: int8_matmul_plain(x, *ws, f32_out), weights)
             rec = {"proj": name, "K": k, "N": n, "M": m, "ms": _time_ms(kernel),
-                   "device_ms": _device_us(kernel, "int8_matmul_kernel", iters=40) / 1e3,
+                   "device_ms": _device_us(kernel, "int8_matmul_kernel", iters=40,
+                                           merge=True) / 1e3,
                    "plain_ms": _time_ms(plain),
                    # every kernel of the plain route: the cast, cuBLAS, the scale
                    "plain_device_ms": _device_us(plain, "", iters=40) / 1e3,
-                   "bound_ms": moved / H100_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+                   "bound_ms": _int8_bytes(x, weights[0], f32_out) / H100_BYTES_PER_S * 1e3,
+                   "library_ms": None, "library_device_ms": None}
+            if library_error is None and not f32_out:
+                packed = [(w.t().contiguous(), s.reshape(-1).contiguous()) for (w, s), in weights]
+                lib = _rotating(lambda w, s: _int8_library(x, w, s), packed)
+                rec["library_ms"] = _time_ms(lib)
+                rec["library_device_ms"] = _device_us(lib, "", iters=40) / 1e3
+                del packed
             log(f"kernel time: int8_matmul {json.dumps(rec)}")
-            records.append(rec)
-            if m == 4 and not f32_out:
-                step["kernel_device_ms"] += 20 * rec["device_ms"]
-                step["plain_device_ms"] += 20 * rec["plain_device_ms"]
-                step["bound_ms"] += 20 * rec["bound_ms"]
-        del weights
-    log(f"int8_matmul: the talker's 140 int8 projections of one decode step (20 layers x 7, "
-        f"M=4, bf16): kernel {step['kernel_device_ms']:.4f} ms device, plain cast + cuBLAS "
-        f"route {step['plain_device_ms']:.4f} ms device, byte bound {step['bound_ms']:.4f} ms")
-    if not 0 < step["kernel_device_ms"] < step["plain_device_ms"]:
+            rows["projections"].append(rec)
+
+    x = torch.randn(4, 1024, generator=gen, device="cuda").bfloat16()
+    h = torch.randn(4, 2048, generator=gen, device="cuda").bfloat16()
+
+    def layer_grouped(layer):  # the layer's 4 launches, each on a fixed input
+        int8_matmul_group(x, [layer[n] for n in ("wq", "wk", "wv")])
+        int8_matmul(x, *layer["wo"])
+        int8_matmul_group(x, [layer["gate"], layer["up"]])
+        int8_matmul(h, *layer["down"])
+
+    def layer_single(layer):  # the same products, one launch each
+        for name, k, _ in TALKER_PROJECTIONS:
+            int8_matmul(x if k == 1024 else h, *layer[name])
+
+    grouped = _rotating(layer_grouped, [(layer,) for layer in layers])
+    single = _rotating(layer_single, [(layer,) for layer in layers])
+    step = {"grouped_device_ms": INT8_ROTATE * _device_us(
+                grouped, "int8_matmul_kernel", iters=40, per_call=4, merge=True) / 1e3,
+            "single_device_ms": INT8_ROTATE * _device_us(
+                single, "int8_matmul_kernel", iters=40, per_call=7, merge=True) / 1e3,
+            "grouped_ms": INT8_ROTATE * _time_ms(grouped),
+            "single_ms": INT8_ROTATE * _time_ms(single)}
+    talker = [r for r in rows["projections"] if r["M"] == 4 and r["proj"] != "lm_head"]
+    step["plain_device_ms"] = INT8_ROTATE * sum(r["plain_device_ms"] for r in talker)
+    step["plain_ms"] = INT8_ROTATE * sum(r["plain_ms"] for r in talker)
+    step["library_device_ms"] = (None if library_error else
+                                 INT8_ROTATE * sum(r["library_device_ms"] for r in talker))
+    step["library_ms"] = (None if library_error else
+                          INT8_ROTATE * sum(r["library_ms"] for r in talker))
+    step["bound_ms"] = INT8_ROTATE * sum(r["bound_ms"] for r in rows["per_launch"]
+                                         if r["M"] == 4 and r["launch"] != "lm_head")
+    return rows, step
+
+
+def phase_kernels_int8_matmul():
+    """int8_matmul: grouped and single launches against the plain version
+    (check_int8_matmul); the timeline of the wq launch (1024 x 1024) and of
+    q|k|v at M=4; the launches and projections timed (time_int8_matmul); the
+    library yardstick probed. Returns the JSON record: the talker's 80 int8
+    GEMM launches of one serving decode step (20 layers x 4, M=4, bf16)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    layers = _int8_layers(gen, INT8_ROTATE)
+    from qwen_tts_tpu_torch.models.trunk import quantize_int8
+
+    heads = [quantize_int8(torch.randn(*LM_HEAD, generator=gen, device="cuda") / LM_HEAD[0] ** 0.5)
+             for _ in range(INT8_ROTATE)]
+    worst = check_int8_matmul(layers, heads[0])
+    timelines = {f"{kind}@{m}": int8_timeline(layers, kind, names, m)
+                 for kind, names, m in (("wq", ("wq",), 4), ("qkv", ("wq", "wk", "wv"), 4),
+                                        ("wq", ("wq",), 128))}
+    for kind, rec in timelines.items():
+        log(f"int8_matmul timeline, {kind} bf16, median of {INT8_ROTATE} launches: "
+            f"{json.dumps(rec)}")
+    library_error = probe_int8_library(layers)
+    if library_error:
+        log(f"library: torch._weight_int8pack_mm does not run on the card: {library_error}")
+    rows, step = time_int8_matmul(layers, heads, library_error)
+    log(f"int8_matmul: the talker's int8 GEMMs of one serving decode step (20 layers, M=4, "
+        f"bf16): 80 grouped launches {step['grouped_device_ms']:.4f} ms device "
+        f"({step['grouped_ms']:.4f} by events), the same products as 140 single launches "
+        f"{step['single_device_ms']:.4f} ({step['single_ms']:.4f}), plain cast + cuBLAS route "
+        f"{step['plain_device_ms']:.4f}, torch._weight_int8pack_mm {step['library_device_ms']}, "
+        f"byte bound {step['bound_ms']:.4f} ms")
+    if not 0 < step["grouped_device_ms"] < step["plain_device_ms"]:
         fail("int8_matmul: the projections take longer on the card than the cast + cuBLAS "
              "route")
-    talker = [r for r in records if r["M"] == 4 and r["proj"] != "lm_head"]
     return {"name": "int8_matmul", "route": "cuda",
             "source": "qwen_tts_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "qwen_tts_tpu/models/trunk.py:114 (_w_matmul, not a TPU kernel)",
-            "shape": "the talker's 140 int8 projections of one serving decode step (20 layers "
-                     "x q/k/v/o/gate/up/down, M=4, bf16); per-projection rows (M 4 and 128, "
-                     "and the sub-talker LM head) in 'projections'",
-            "ms": 20 * sum(r["ms"] for r in talker), "device_ms": step["kernel_device_ms"],
-            "plain_ms": 20 * sum(r["plain_ms"] for r in talker),
-            "plain_device_ms": step["plain_device_ms"], "library_ms": None,
+            "shape": "the talker's 80 int8 GEMM launches of one serving decode step (20 layers "
+                     "x q|k|v, o, gate|up, down; M=4, bf16); per-launch and per-projection "
+                     "rows (M 4 and 128, and the sub-talker LM head) in 'per_launch' and "
+                     "'projections'",
+            "ms": step["grouped_ms"], "device_ms": step["grouped_device_ms"],
+            "single_device_ms": step["single_device_ms"],
+            "plain_ms": step["plain_ms"], "plain_device_ms": step["plain_device_ms"],
+            "library_ms": step["library_ms"], "library_device_ms": step["library_device_ms"],
+            "library_error": library_error,
             "bound_ms": step["bound_ms"], "bound_by": "bytes", "max_abs_err": worst,
-            "projections": records}
+            "timelines": timelines, **rows}
 
 
 # Batch invariance: (B, S_max, row, left padding) placements of one row of
@@ -1533,12 +1734,13 @@ def phase_batch_invariance():
     """A row's bits alone and beside other rows, bitwise, on the card:
     decode_attention (float and int8 caches) at B 1/4/32, S_max 97 and 2080,
     moved by left padding; subtalker_step at B 1/4/32 (f32 and bf16);
-    int8_matmul at M 1/4/32 (the talker's projection shapes, f32 and bf16)."""
+    int8_matmul at M 1/4/32 (the talker layer's launches, grouped as the path
+    groups them, and the LM head; f32 and bf16)."""
     import torch
 
     from qwen_tts_tpu_torch.models.trunk import quantize_int8
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
-    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul_group
     from qwen_tts_tpu_torch.ops.cuda.subtalker_step import KERNEL_DIMS, subtalker_step
     from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 
@@ -1591,21 +1793,25 @@ def phase_batch_invariance():
         if not same:
             fail("subtalker_step: a row's bits depend on the rows around it")
 
-    for name, k, n in TALKER_PROJECTIONS + (("lm_head", *LM_HEAD),):
-        w_i8, s = quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
+    layer = _int8_layers(gen, 1)[0]
+    head = quantize_int8(torch.randn(*LM_HEAD, generator=gen, device="cuda") / LM_HEAD[0] ** 0.5)
+    launches = [(kind, [layer[n] for n in names], False) for kind, names in LAYER_LAUNCHES]
+    for kind, weights, f32_out in launches + [("lm_head", [head], True)]:
+        k = weights[0][0].shape[0]
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(32, k, generator=gen, device="cuda").to(dtype)
-            f32_out = name == "lm_head"
-            full = int8_matmul(x, w_i8, s, f32_out)
-            four = int8_matmul(x[:4].contiguous(), w_i8, s, f32_out)
-            one = int8_matmul(x[17:18].contiguous(), w_i8, s, f32_out)
+            full = int8_matmul_group(x, weights, f32_out)
+            four = int8_matmul_group(x[:4].contiguous(), weights, f32_out)
+            one = int8_matmul_group(x[17:18].contiguous(), weights, f32_out)
             torch.cuda.synchronize()
-            same = torch.equal(four, full[:4]) and torch.equal(one, full[17:18])
-            checks += 2
+            same = all(torch.equal(f4, f[:4]) and torch.equal(f1, f[17:18])
+                       for f, f4, f1 in zip(full, four, one))
+            checks += 2 * len(weights)
             if not same:
-                fail(f"int8_matmul {name} {dtype}: a row's bits depend on M")
-    log(f"batch invariance: int8_matmul rows at M 1/4/32, the talker's 7 projections and the "
-        f"LM head, f32 and bf16: the same bits; {checks} checks in all pass")
+                fail(f"int8_matmul {kind} {dtype}: a row's bits depend on M")
+    log(f"batch invariance: int8_matmul rows at M 1/4/32, the talker layer's 4 launches "
+        f"(q|k|v and gate|up grouped) and the LM head, f32 and bf16: the same bits; {checks} "
+        f"checks in all pass")
 
 
 def check_serving_rows_alone(model, smi: str) -> None:
@@ -1806,16 +2012,16 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
         f"{MAX_NEW} x {model.cfg.talker.num_hidden_layers} over S_max = prompt bucket + "
         f"{MAX_NEW}; the sub-talker's over 16-17 slots)")
     if serving:
-        projections = len(TALKER_PROJECTIONS)
+        per_layer = len(LAYER_LAUNCHES)
         expected = {"decode_attention": 0, "decode_attention_int8": MAX_NEW * talker_layers,
                     "subtalker_step": MAX_NEW * g, "vocoder_block": 0,
-                    "int8_matmul": (1 + MAX_NEW) * talker_layers * projections
+                    "int8_matmul": (1 + MAX_NEW) * talker_layers * per_layer
                     + MAX_NEW * (g - 1)}
         how = (f"int8 attention {MAX_NEW} frames x {talker_layers} talker layers, "
                f"micro-step {MAX_NEW} frames x {g} groups, int8 GEMM (prefill + {MAX_NEW} "
-               f"steps) x {talker_layers} layers x {projections} projections + {MAX_NEW} "
-               f"frames x {g - 1} LM heads, float attention and the f32 codec's vocoder "
-               f"blocks 0")
+               f"steps) x {talker_layers} layers x {per_layer} launches (q|k|v, o, gate|up, "
+               f"down) + {MAX_NEW} frames x {g - 1} LM heads, float attention and the f32 "
+               f"codec's vocoder blocks 0")
     else:
         per_frame = talker_layers + g * tk.code_predictor.num_hidden_layers
         expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
@@ -2481,6 +2687,37 @@ def _same_decode(a, b) -> bool:
         for f in ("token", "hidden", "presence", "eos", "num_gen"))
 
 
+# What phase_graphs' modes run; "serving+kv" is phase 6's serving path
+# (quantize_for_serving(talker=True, kv=True)).
+GRAPH_MODES = {"bf16": "bf16 weights and KV cache",
+               "serving": "int8 weights, bf16 KV cache",
+               "serving+kv": "int8 weights and KV cache, the serving path"}
+
+
+def time_replayed_frames(model, inputs, gp, mode: str, smi: str, runs: int = 5) -> dict:
+    """The replayed decode segment (B=4, MAX_NEW frames, prefill outside)
+    timed ``runs`` times: ms a frame, median (min..max); then one profiled
+    replay: device busy time a frame and the int8 GEMM's share of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = [_segment(model, inputs, gp, eager=False)[2] / MAX_NEW * 1e3 for _ in range(runs)]
+    prof = _segment(model, inputs, gp, eager=False, profiler=lambda: profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))[3]
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / MAX_NEW
+    int8 = [e for e in device if "int8_matmul_kernel" in e.key]
+    int8_ms = sum(e.self_device_time_total for e in int8) / 1e3 / MAX_NEW
+    launches = sum(e.count for e in int8) / MAX_NEW
+    kernels = sum(e.count for e in device) / MAX_NEW
+    log(f"graphs [{mode}]: {GRAPH_MODES[mode]}: replayed decode B=4, {MAX_NEW} frames "
+        f"(prefill outside), {runs} runs: "
+        f"{_spread(ms)} ms/frame; one profiled replay: device busy {busy:.3f} ms/frame in "
+        f"{kernels:.1f} device ops/frame, int8_matmul {int8_ms:.4f} ms/frame in {launches:.1f} "
+        f"launches/frame | {smi}")
+    return {"ms": ms, "busy_ms": busy, "int8_ms": int8_ms}
+
+
 def phase_graphs(model_dir: str, smi: str) -> None:
     """Phase 10: the replayed decode against the eager frame loop on the
     card, each through the module's own function (``_decode``,
@@ -2499,7 +2736,7 @@ def phase_graphs(model_dir: str, smi: str) -> None:
 
     speakers = ["aiden", "serena", "aiden", "serena"]
     languages = ["english", "auto", "chinese", "english"]
-    for mode in ("bf16", "serving", "serving+kv"):
+    for mode in GRAPH_MODES:
         model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
                                               load_tokenizer=False)
         if mode != "bf16":
@@ -2524,6 +2761,7 @@ def phase_graphs(model_dir: str, smi: str) -> None:
             f"replayed, {eager[2] / MAX_NEW * 1e3:.2f} eager (one run each) | {smi}")
         if not same:
             fail(f"graphs [{mode}]: the replayed decode differs from the eager loop")
+        time_replayed_frames(model, inputs, banned, mode, smi)
 
         x = _eos_token(graph[1][..., 0].cpu().numpy(), EOS_RUN_LIMITS)
         eos = model.cfg.talker.codec_eos_token_id

@@ -18,7 +18,7 @@ channel bf16 scales (``<key>_i8`` / ``<key>_s``); every projection then
 dequantizes at the matmul, ``(x @ w_i8) * s`` in the activation dtype,
 through the hand-written int8 GEMM (``ops/cuda/int8_matmul.py``) for CUDA
 tensors, which reads only the int8 bytes, and its plain version for CPU
-tensors.
+tensors; the products that read one x (q|k|v, gate|up) are one launch.
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.ops.attention import KVCache, attention_prefill, int8_scale, quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
-from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
+from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_group
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import apply_rope
 
@@ -81,11 +81,20 @@ def _w_matmul(layer: dict, key: str, x: torch.Tensor) -> torch.Tensor:
     return x @ layer[key]
 
 
+def _w_matmuls(layer: dict, keys: Sequence[str], x: torch.Tensor) -> list:
+    """x @ W for each key, one int8 GEMM launch for int8 weights (each
+    product the bits of its own ``_w_matmul``)."""
+    if keys[0] + "_i8" in layer:
+        return int8_matmul_group(x, [(layer[k + "_i8"], layer[k + "_s"]) for k in keys])
+    return [x @ layer[k] for k in keys]
+
+
 def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
     """x: [..., D] → q [..., H, hd], k/v [..., KV, hd] with QK-RMSNorm."""
-    q = _w_matmul(layer, "wq", x).unflatten(-1, (dims.heads, dims.head_dim))
-    k = _w_matmul(layer, "wk", x).unflatten(-1, (dims.kv_heads, dims.head_dim))
-    v = _w_matmul(layer, "wv", x).unflatten(-1, (dims.kv_heads, dims.head_dim))
+    q, k, v = _w_matmuls(layer, ("wq", "wk", "wv"), x)
+    q = q.unflatten(-1, (dims.heads, dims.head_dim))
+    k = k.unflatten(-1, (dims.kv_heads, dims.head_dim))
+    v = v.unflatten(-1, (dims.kv_heads, dims.head_dim))
     if dims.qk_norm:
         q = rms_norm(q, layer["q_norm"], dims.eps)
         k = rms_norm(k, layer["k_norm"], dims.eps)
@@ -93,8 +102,8 @@ def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
 
 
 def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
-    h = F.silu(_w_matmul(layer, "gate", x)) * _w_matmul(layer, "up", x)
-    return _w_matmul(layer, "down", h)
+    gate, up = _w_matmuls(layer, ("gate", "up"), x)
+    return _w_matmul(layer, "down", F.silu(gate) * up)
 
 
 def _maybe_scale(layer: dict, key: str, x: torch.Tensor) -> torch.Tensor:

@@ -3,16 +3,21 @@
 // std::thread per CUDA thread, std::barrier for warps, blocks and clusters,
 // shuffles through a warp's exchange slots, mma.sync m16n8k16 by its PTX
 // fragment layouts, cp.async as a plain copy (a copy that lands early is one
-// of the orders the card allows), ldmatrix by its fragment layouts. The PTX
+// of the orders the card allows), ldmatrix by its fragment layouts, mbarriers
+// with transaction bytes and st.async into a peer's shared memory. The PTX
 // helpers of a kernel are cut from its source and these take their place
 // (tests/torch_port_fixtures.py: host_source).
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <optional>
 #include <thread>
 #include <vector>
@@ -200,6 +205,70 @@ inline void ldsm_x4_any(uint32_t* r, const void* p, bool trans) {
 }
 inline void ldsm_x4(uint32_t* r, const void* p) { ldsm_x4_any(r, p, false); }
 inline void ldsm_x4_trans(uint32_t* r, const void* p) { ldsm_x4_any(r, p, true); }
+
+// Loads and stamps: a weight load is a plain copy.
+inline uint2 load_weight8(const int8_t* p) {
+  uint2 v;
+  memcpy(&v, p, 8);
+  return v;
+}
+inline void __threadfence_block() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+inline uint64_t global_ns() {
+  return (uint64_t)std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch()).count();
+}
+
+// mbarriers: a table keyed by the barrier's address in the emulated shared
+// memory, under one lock. A phase completes when its pending arrivals and
+// its transaction bytes both reach 0; the bytes may be counted down before
+// they are expected, as on the card.
+namespace emu {
+struct Mbar {
+  int count, pending;
+  long long tx;
+  uint32_t phase;
+};
+inline std::mutex mbar_lock;
+inline std::map<const void*, Mbar> mbars;
+inline void mbar_settle(Mbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    b.phase ^= 1;
+    b.pending = b.count;
+  }
+}
+}  // namespace emu
+inline void mbar_init(uint64_t* bar, uint32_t count) {
+  std::lock_guard<std::mutex> g(emu::mbar_lock);
+  emu::mbars[bar] = {(int)count, (int)count, 0, 0};
+}
+inline void fence_mbarrier_init() {}
+inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  std::lock_guard<std::mutex> g(emu::mbar_lock);
+  emu::Mbar& b = emu::mbars.at(bar);
+  b.tx += bytes;
+  b.pending -= 1;
+  emu::mbar_settle(b);
+}
+inline void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (;;) {
+    {
+      std::lock_guard<std::mutex> g(emu::mbar_lock);
+      if (emu::mbars.at(bar).phase != parity) return;
+    }
+    std::this_thread::yield();
+  }
+}
+// st.async into a peer's shared memory: the copy, then its bytes counted
+// on the peer's barrier.
+inline void push_async(float* slot, uint64_t* bar, int rank, float4 v) {
+  unsigned char* peer = emu::tls.cl->smem[rank];
+  memcpy(peer + (reinterpret_cast<unsigned char*>(slot) - emu::tls.smem), &v, 16);
+  auto* peer_bar = peer + (reinterpret_cast<unsigned char*>(bar) - emu::tls.smem);
+  std::lock_guard<std::mutex> g(emu::mbar_lock);
+  emu::Mbar& b = emu::mbars.at(peer_bar);
+  b.tx -= 16;
+  emu::mbar_settle(b);
+}
 
 inline long long clock64() { return 0; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }

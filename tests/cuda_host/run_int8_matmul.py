@@ -1,8 +1,9 @@
 """Runs the host-emulated int8-matmul library over a file of cases and saves
 the outputs: ``python run_int8_matmul.py LIB CASES OUT``.
 
-Each case is a dict with x [M, K] (f32 or bf16), w int8 [K, N], s bf16
-[1, N] and f32_out, on the CPU; the result is (cudaError code, output).
+Each case is a dict with x [M, K] (f32 or bf16), ws, a list of (w int8
+[K, N], s bf16 [1, N]) that one launch computes, and f32_out, on the CPU;
+the result is (cudaError code, [output per weight]).
 ``tests/test_torch_int8_matmul.py`` runs this in a subprocess with a time
 limit."""
 
@@ -12,22 +13,28 @@ import sys
 import torch
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+GROUP = 4
 
 
 def run(lib, case):
-    x, w, s, f32_out = case["x"], case["w"], case["s"], case["f32_out"]
+    x, ws, f32_out = case["x"], case["ws"], case["f32_out"]
     m, k = x.shape
-    n = w.shape[1]
-    out = torch.full((m, n), float("nan"), dtype=torch.float32 if f32_out else x.dtype)
-    err = lib.qtts_int8_matmul(x.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-                               DTYPES[x.dtype], int(f32_out), m, k, n, None)
-    return err, out
+    outs = [torch.full((m, w.shape[1]), float("nan"),
+                       dtype=torch.float32 if f32_out else x.dtype) for w, _ in ws]
+    slots = max(GROUP, len(ws))  # a refused case may hold more weights
+    ptrs = ctypes.c_void_p * slots
+    err = lib.qtts_int8_matmul(
+        x.data_ptr(), len(ws), ptrs(*[w.data_ptr() for w, _ in ws]),
+        ptrs(*[s.data_ptr() for _, s in ws]), ptrs(*[o.data_ptr() for o in outs]),
+        (ctypes.c_int * slots)(*[w.shape[1] for w, _ in ws]), DTYPES[x.dtype], int(f32_out),
+        m, k, None, None)
+    return err, outs
 
 
 def main(lib_path, cases_path, out_path):
     lib = ctypes.CDLL(lib_path)
-    lib.qtts_int8_matmul.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
+    lib.qtts_int8_matmul.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                                     + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
     cases = torch.load(cases_path)
     torch.save({name: run(lib, case) for name, case in cases.items()}, out_path)
 

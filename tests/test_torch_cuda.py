@@ -20,7 +20,14 @@ from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
     decode_attention_int8_plain,
     decode_attention_plain,
 )
-from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_plain
+from qwen_tts_tpu_torch.ops.cuda.int8_matmul import (
+    TIMELINE_SLOTS,
+    int8_matmul,
+    int8_matmul_group,
+    int8_matmul_plain,
+    launch_blocks,
+    timeline_breakdown,
+)
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import (
     KERNEL_DIMS,
     pack_subtalker_weights,
@@ -554,6 +561,42 @@ def test_int8_matmul_row_bits_do_not_depend_on_m(device, k, n, f32_out, dtype):
     torch.cuda.synchronize()
     assert torch.equal(four, full[:4])
     assert torch.equal(one, full[17:18])
+
+
+# The talker layer's grouped launches: q|k|v and gate|up (K 1024).
+INT8_GROUPS = [[(1024, 1024), (1024, 128), (1024, 128)], [(1024, 2048), (1024, 2048)]]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", [1, 4, 32, 128])
+@pytest.mark.parametrize("shapes", INT8_GROUPS)
+def test_int8_matmul_group_is_its_single_launches(device, shapes, m, dtype):
+    g = torch.Generator(device=device).manual_seed(len(shapes) + m)
+    weights = [_int8_weight(g, k, n, device) for k, n in shapes]
+    x = torch.randn(m, 1024, generator=g, device=device).to(dtype)
+    before = int8_matmul.launches
+    got = int8_matmul_group(x, weights)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches == before + 1
+    for (w_i8, s), y in zip(weights, got):
+        assert torch.equal(y, int8_matmul(x, w_i8, s))
+        want = int8_matmul_plain(x, w_i8, s)
+        torch.testing.assert_close(y.float(), want.float(), rtol=0,
+                                   atol=INT8_MATMUL_TOL[dtype] * want.float().abs().max().item())
+
+
+def test_int8_matmul_timeline_stamps_every_block(device):
+    g = torch.Generator(device=device).manual_seed(5)
+    weights = [_int8_weight(g, k, n, device) for k, n in INT8_GROUPS[0]]
+    x = torch.randn(4, 1024, generator=g, device=device).bfloat16()
+    timeline = torch.zeros(launch_blocks(x, weights), TIMELINE_SLOTS, dtype=torch.int64,
+                           device=device)
+    got = int8_matmul_group(x, weights, timeline=timeline)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, int8_matmul_group(x, weights)))
+    t = timeline.cpu()
+    assert (t > 0).all() and (t[:, 1:] >= t[:, :-1]).all()
+    assert timeline_breakdown(timeline)["blocks"] == timeline.shape[0] == 8 * 20
 
 
 def test_int8_matmul_rejects_what_it_does_not_take(device):
