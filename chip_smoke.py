@@ -83,7 +83,29 @@ Phases, each of which exits non-zero on failure:
    ``BF16_CODEC_REL_L2``. Each phase logs its graphs' capture cost; each
    mode times the replayed segment five times (ms a frame, median) and
    profiles one replay (device busy a frame, the int8 GEMM's device time a
-   frame).
+   frame);
+11. clone: a Base variant of the checkpoint (links to the talker and codec
+   files, plus random ECAPA-TDNN and Mimi encoder weights at the published
+   widths); ``create_voice_clone_prompt`` (ICL) of four ragged reference
+   clips (2 and 3 s at 24 kHz, 4.5 and 6 s at 16 kHz, resampled), timed per
+   clip and by stage (resample, Mimi encode, x-vector), and one
+   x-vector-only prompt; the x-vectors finite, ``enc_dim`` long and apart;
+   then ``generate_voice_clone`` for the batch of 4 (bf16 talker, f32 codec,
+   EOS banned) through the graphs (the ICL prompts land in a new prompt
+   bucket, captured anew): decode-attention launches exactly frames x
+   (talker layers + groups x sub-talker layers), each waveform 64 x 1920
+   samples once the reference frames are cut; both decode-attention kernels
+   (float and int8 caches) held against their plain versions at the clone
+   batch's talker cache (prompt bucket + MAX_NEW slots, a split no earlier
+   phase holds), with the batch's own left pads; the decode loop and the whole
+   call timed five runs each in turns; the x-vector-only prompt over the 4
+   texts; the serving mode with phase 6's launch counts and no whole int8
+   cast; the bf16 codec on the merged reference + generated codes (up to
+   139 frames), held as phase 8 holds it; f32 card against CPU: the Mimi
+   codes of the four clips agree at >= ``CLONE_CODE_AGREEMENT`` with
+   near-ties only, the x-vectors within ``CLONE_XVEC_REL_L2``, and greedy
+   clone codes from the card's prompt saved as a ``.pt`` voice file and
+   loaded are equal.
 
 The line before the last holds the kernels' JSON records; the last line is
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``qwen_tts_tpu``.
@@ -153,6 +175,23 @@ STREAM_FIRST, STREAM_CHUNK, STREAM_CONTEXT = 2, 25, 25
 # The codec windows of a B=1 stream: its first packet, the second (the first
 # packet's frames as context), and every later one.
 STREAM_FRAMES = (STREAM_FIRST, STREAM_FIRST + STREAM_CHUNK, STREAM_CONTEXT + STREAM_CHUNK)
+
+# Voice clone (phase 11): four reference clips, ragged, (seconds, sample
+# rate); the last two at 16 kHz, so the resampler runs. Each has a text.
+CLONE_CLIPS = ((2.0, 24000), (3.0, 24000), (4.5, 16000), (6.0, 16000))
+CLONE_REF_TEXTS = [
+    "This is the first reference voice.",
+    "A second speaker reads a slightly longer line.",
+    "The third clip was recorded at sixteen kilohertz.",
+    "And the fourth, the longest of the four, at sixteen kilohertz as well.",
+]
+# Card against CPU on the clone's encoders, f32: the x-vectors within this
+# relative L2 (the convs and FFT sum in other orders); the Mimi codes agree
+# at least at CLONE_CODE_AGREEMENT, and where a quantizer branch of a frame
+# first parts the two codes' distances lie within CLONE_NEAR_TIE_REL.
+CLONE_XVEC_REL_L2 = 1e-4
+CLONE_CODE_AGREEMENT = 0.99
+CLONE_NEAR_TIE_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -377,6 +416,124 @@ def write_checkpoint(model_dir: str, cfg, seed: int, device: str = "cuda") -> No
                    upsampling_ratios=list(dec.upsampling_ratios))
     with open(os.path.join(st_dir, "config.json"), "w") as f:
         json.dump({"decoder_config": dec_cfg}, f)
+
+
+def speaker_specs(se):
+    """ECAPA-TDNN tensors of a Base checkpoint (``speaker_encoder.*``, convs
+    [C_out, C_in, K]) for the speaker-encoder config ``se``."""
+    ch, ks = se.enc_channels, se.enc_kernel_sizes
+    specs = []
+
+    def conv(name, cin, cout, k):
+        specs.extend([(f"speaker_encoder.{name}.weight", (cout, cin, k), cin * k),
+                      (f"speaker_encoder.{name}.bias", (cout,), "zeros")])
+
+    conv("blocks.0.conv", se.mel_dim, ch[0], ks[0])
+    for i in range(1, len(ch) - 1):
+        width = ch[i] // se.enc_res2net_scale
+        conv(f"blocks.{i}.tdnn1.conv", ch[i - 1], ch[i], 1)
+        for j in range(se.enc_res2net_scale - 1):
+            conv(f"blocks.{i}.res2net_block.blocks.{j}.conv", width, width, ks[i])
+        conv(f"blocks.{i}.tdnn2.conv", ch[i], ch[i], 1)
+        conv(f"blocks.{i}.se_block.conv1", ch[i], se.enc_se_channels, 1)
+        conv(f"blocks.{i}.se_block.conv2", se.enc_se_channels, ch[i], 1)
+    conv("mfa.conv", sum(ch[1:-1]), ch[-1], ks[-1])
+    conv("asp.tdnn.conv", ch[-1] * 3, se.enc_attention_channels, 1)
+    conv("asp.conv", se.enc_attention_channels, ch[-1], 1)
+    conv("fc", ch[-1] * 2, se.enc_dim, 1)
+    return specs
+
+
+def mimi_specs(mc):
+    """The Mimi encoder's tensors (``encoder.*``, the transformers MimiModel
+    names the port's loader reads) for the config ``mc``: SEANet, the
+    transformer, the downsample conv and the split RVQ's codebooks (usage
+    > 0)."""
+    specs = []
+
+    def conv(name, cin, cout, k, bias=True):
+        specs.append((f"encoder.{name}.weight", (cout, cin, k), cin * k))
+        if bias:
+            specs.append((f"encoder.{name}.bias", (cout,), "zeros"))
+
+    conv("encoder.layers.0.conv", mc.audio_channels, mc.num_filters, mc.kernel_size)
+    idx, dim = 1, mc.num_filters
+    for ratio in reversed(mc.upsampling_ratios):
+        for j in range(mc.num_residual_layers):
+            conv(f"encoder.layers.{idx}.block.1.conv", dim, dim // mc.compress,
+                 mc.residual_kernel_size)
+            conv(f"encoder.layers.{idx}.block.3.conv", dim // mc.compress, dim, 1)
+            idx += 1
+        conv(f"encoder.layers.{idx + 1}.conv", dim, 2 * dim, 2 * ratio)
+        idx, dim = idx + 2, 2 * dim
+    conv(f"encoder.layers.{idx + 1}.conv", dim, mc.hidden_size, mc.last_kernel_size)
+    d, qd = mc.hidden_size, mc.num_attention_heads * mc.head_dim
+    kvd = mc.num_key_value_heads * mc.head_dim
+    for i in range(mc.num_hidden_layers):
+        p = f"encoder.encoder_transformer.layers.{i}."
+        specs += [
+            (p + "input_layernorm.weight", (d,), "ones"),
+            (p + "input_layernorm.bias", (d,), "zeros"),
+            (p + "self_attn.q_proj.weight", (qd, d), d),
+            (p + "self_attn.k_proj.weight", (kvd, d), d),
+            (p + "self_attn.v_proj.weight", (kvd, d), d),
+            (p + "self_attn.o_proj.weight", (d, qd), qd),
+            (p + "post_attention_layernorm.weight", (d,), "ones"),
+            (p + "post_attention_layernorm.bias", (d,), "zeros"),
+            (p + "mlp.fc1.weight", (mc.intermediate_size, d), d),
+            (p + "mlp.fc2.weight", (d, mc.intermediate_size), mc.intermediate_size),
+            (p + "self_attn_layer_scale.scale", (d,), 0.01),
+            (p + "mlp_layer_scale.scale", (d,), 0.01),
+        ]
+    conv("downsample.conv", d, d, 4, bias=False)
+    # Codewords N(0, 1/16) per entry before the usage division: |e|² about
+    # 16, the size of the residuals they quantize at these random weights,
+    # so the codes change from frame to frame (N(0, 1) codewords, ~17x the
+    # residuals, leave ~3 distinct codes a clip).
+    vq = mc.vector_quantization_hidden_dimension
+    for branch, n in (("semantic", mc.num_semantic_quantizers),
+                      ("acoustic", mc.num_quantizers - mc.num_semantic_quantizers)):
+        p = f"encoder.quantizer.{branch}_residual_vector_quantizer."
+        specs.append((p + "input_proj.weight", (vq, d, 1), d))
+        for q in range(n):
+            specs += [(f"{p}layers.{q}.codebook.cluster_usage", (mc.codebook_size,), "usage"),
+                      (f"{p}layers.{q}.codebook.embed_sum", (mc.codebook_size, mc.codebook_dim),
+                       16)]
+    return specs
+
+
+def write_base_checkpoint(model_dir: str, base_dir: str, cfg, mimi_cfg, seed: int,
+                          device: str = "cuda") -> None:
+    """A Base checkpoint in ``base_dir`` beside the one ``write_checkpoint``
+    put in ``model_dir``: its talker and codec files are links to those, and
+    it adds the speaker encoder (``speaker_encoder.safetensors``), the Mimi
+    encoder (``speech_tokenizer/encoder.safetensors``) and configs that say
+    so (``tts_model_type`` "base", ``speaker_encoder_config``,
+    ``encoder_config`` and the codec's rates from ``cfg``)."""
+    import torch
+
+    from qwen_tts_tpu_torch.io.safetensors import save_file
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    os.makedirs(os.path.join(base_dir, "speech_tokenizer"))
+    for rel in ("model.safetensors", os.path.join("speech_tokenizer", "model.safetensors")):
+        os.symlink(os.path.abspath(os.path.join(model_dir, rel)), os.path.join(base_dir, rel))
+    save_file(make_tensors(speaker_specs(cfg.speaker_encoder), torch.float32, gen),
+              os.path.join(base_dir, "speaker_encoder.safetensors"))
+    save_file(make_tensors(mimi_specs(mimi_cfg), torch.float32, gen),
+              os.path.join(base_dir, "speech_tokenizer", "encoder.safetensors"))
+    for rel, extra in (
+            ("config.json", {"tts_model_type": "base",
+                             "speaker_encoder_config": dataclasses.asdict(cfg.speaker_encoder)}),
+            (os.path.join("speech_tokenizer", "config.json"), {
+                "encoder_config": dataclasses.asdict(mimi_cfg),
+                **{k: getattr(cfg.codec, k) for k in (
+                    "encoder_valid_num_quantizers", "input_sample_rate", "output_sample_rate",
+                    "decode_upsample_rate", "encode_downsample_rate")}})):
+        with open(os.path.join(model_dir, rel)) as f:
+            config = json.load(f)
+        with open(os.path.join(base_dir, rel), "w") as f:
+            json.dump({**config, **extra}, f)
 
 
 class ChatTemplateTokenizer:
@@ -606,6 +763,43 @@ def _hold(got, want, dtype, what: str, rel=None) -> float:
     return err
 
 
+def hold_attention_at(gen, shape, int8: bool, label: str, rows=()) -> float:
+    """decode_attention (float cache) or decode_attention_int8 against its
+    plain version at one cache shape ``(H, KV, hd, S_max)``: B 1 and 4, bf16
+    and f32 queries, no window and a window of 13, rows ending 3 apart below
+    S_max with left pads 5 apart; then each ``(cur_len, valid_from)`` of
+    ``rows`` (B = their length) at both dtypes. Returns the largest error."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda import decode_attention as da
+
+    h, kv, hd, s_max = shape
+    name = "decode_attention_int8" if int8 else "decode_attention"
+    kernel, plain = getattr(da, name), getattr(da, name + "_plain")
+    cases = []
+    for b in (1, 4):
+        cur_len = [s_max - 3 * i for i in range(b)]
+        cases.append((cur_len, [min(5 * i, cl - 1) for i, cl in enumerate(cur_len)]))
+    worst = 0.0
+    for cur_len, valid_from in [*cases, *rows]:
+        for dtype in (torch.bfloat16, torch.float32):
+            for window in ((None, 13) if (cur_len, valid_from) in cases else (None,)):
+                q, k, v, cl, vf = _attention_inputs(
+                    gen, len(cur_len), h, kv, hd, s_max, cur_len, valid_from,
+                    torch.float32 if int8 else dtype)
+                if int8:
+                    k, v = _int8_caches(k, v)
+                    q = q.to(dtype)
+                got = kernel(q, k, v, cl, vf, window)
+                torch.cuda.synchronize()
+                want = plain(q, k, v, cl, vf, window)
+                worst = max(worst, _hold(
+                    got, want, dtype, f"{name} {label} B={len(cur_len)} H{h}/KV{kv} hd{hd} "
+                    f"S_max={s_max} n_split={_n_split(s_max)} window={window} cur_len "
+                    f"{cur_len} valid_from {valid_from}"))
+    return worst
+
+
 def check_long_attention(gen, int8: bool) -> float:
     """The kernel against its plain version at S_max = ATTN_LONG_S_MAX, the
     talker's heads, B 1/4/32, both dtypes, no window and two windows (edges
@@ -691,22 +885,8 @@ def phase_kernels_decode_attention(talker_s_max: int):
         decode_attention, decode_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst = 0.0
-    shapes = {"talker": (16, 2, 64, talker_s_max), "subtalker": (16, 8, 128, 16)}
-    for name, (h, kv, hd, s_max) in shapes.items():
-        for b in (1, 4):
-            for dtype in (torch.bfloat16, torch.float32):
-                for window in (None, 13):
-                    cur_len = [s_max - 3 * i for i in range(b)]
-                    valid_from = [min(5 * i, cl - 1) for i, cl in enumerate(cur_len)]
-                    args = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len,
-                                             valid_from, dtype)
-                    got = decode_attention(*args, window)
-                    torch.cuda.synchronize()
-                    want = decode_attention_plain(*args, window)
-                    worst = max(worst, _hold(
-                        got, want, dtype, f"decode_attention {name} B={b} H{h}/KV{kv} hd{hd} "
-                        f"S_max={s_max} n_split={_n_split(s_max)} window={window}"))
+    shapes = {"talker": (*ATTN_TALKER, talker_s_max), "subtalker": (16, 8, 128, 16)}
+    worst = max(hold_attention_at(gen, shape, False, name) for name, shape in shapes.items())
     worst = max(worst, check_long_attention(gen, int8=False))
 
     records = {}
@@ -759,22 +939,7 @@ def phase_kernels_int8_attention(s_max: int):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     h, kv, hd = ATTN_TALKER
-    worst = 0.0
-    for b in (1, 4):
-        for dtype in (torch.bfloat16, torch.float32):
-            for window in (None, 13):
-                cur_len = [s_max - 3 * i for i in range(b)]
-                valid_from = [min(5 * i, cl - 1) for i, cl in enumerate(cur_len)]
-                q, k, v, cl, vf = _attention_inputs(gen, b, h, kv, hd, s_max, cur_len,
-                                                    valid_from, torch.float32)
-                kc, vc = _int8_caches(k, v)
-                q = q.to(dtype)
-                got = decode_attention_int8(q, kc, vc, cl, vf, window)
-                torch.cuda.synchronize()
-                want = decode_attention_int8_plain(q, kc, vc, cl, vf, window)
-                worst = max(worst, _hold(
-                    got, want, dtype, f"decode_attention_int8 talker B={b} H{h}/KV{kv} hd{hd} "
-                    f"S_max={s_max} n_split={_n_split(s_max)} window={window}"))
+    worst = hold_attention_at(gen, (h, kv, hd, s_max), True, "talker")
     worst = max(worst, check_long_attention(gen, int8=True))
 
     b = 4
@@ -2324,30 +2489,24 @@ def decode_walls(model, codes, runs: int = 5) -> list:
     return walls
 
 
-def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
-    """The bf16 codec on the path phase's codes: the vocoder-block kernel
-    launches twice per codec_decode call; the waveforms are finite, in
-    [-1, 1] and 1920 samples per frame. Teacher-forced, each launch in a
-    decode is held against the plain version on its own input. Before the
-    clamp the waveforms lie within BF16_CODEC_REL_L2 of the same decode
-    through the block's plain version. (The random codec drives ~99% of its
-    samples into the clamp, where a sign flip of a large value reads as a
-    difference of 2, so that comparison scales the final conv, the last op
-    before the clamp, by 2^-20: exact in bf16, it gives the unclamped
-    waveform x 2^-20.)"""
+def hold_codec_bf16(model, codes, name: str):
+    """``decode_codes`` of ``codes`` through a bf16 codec (``model``): the
+    vocoder-block kernel launches twice per codec_decode call, nothing else
+    of the port's kernels runs; the waveforms are finite, in [-1, 1] and 1920
+    samples per frame. Teacher-forced, each launch in a decode is held
+    against the plain version on its own input. Before the clamp the
+    waveforms lie within BF16_CODEC_REL_L2 of the same decode through the
+    block's plain version. (The random codec drives ~99% of its samples into
+    the clamp, where a sign flip of a large value reads as a difference of
+    2, so that comparison scales the final conv, the last op before the
+    clamp, by 2^-20: exact in bf16, it gives the unclamped waveform x
+    2^-20.) Returns (waveforms, wall seconds of the counted decode)."""
     import numpy as np
     import torch
 
     from qwen_tts_tpu_torch.models import codec as codec_mod
     from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block, vocoder_block_plain
-    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
 
-    t0 = time.perf_counter()
-    model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
-                                          load_tokenizer=False)
-    log(f"codec bf16: from_pretrained (bf16 talker, bf16 codec) in "
-        f"{time.perf_counter() - t0:.1f} s")
-    codes = path["codes"]
     model.decode_codes(codes)  # warm-up
     torch.cuda.synchronize()
     calls = []
@@ -2370,21 +2529,15 @@ def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
     launches = {k: fn.launches for k, fn in _counters().items()}
     expected = {"decode_attention": 0, "decode_attention_int8": 0, "subtalker_step": 0,
                 "vocoder_block": 2 * len(calls), "int8_matmul": 0}
-    log(f"codec bf16: launches {launches}, expected {expected} (2 vocoder blocks x "
-        f"{len(calls)} codec_decode call(s))")
+    log(f"{name}: launches {launches}, expected {expected} (2 vocoder blocks x "
+        f"{len(calls)} codec_decode call(s); frames per row {[c.shape[0] for c in codes]})")
     if launches != expected or not calls:
-        fail("the bf16 codec did not launch the vocoder-block kernel as expected")
+        fail(f"{name}: the bf16 codec did not launch the vocoder-block kernel as expected")
     want_len = [c.shape[0] * model.cfg.codec.decode_upsample_rate for c in codes]
     for i, (w, n) in enumerate(zip(wavs, want_len)):
         if w.shape != (n,) or not np.isfinite(w).all() or np.abs(w).max() > 1:
-            fail(f"bf16 codec waveform {i}: shape {w.shape} (want {n}), finite "
+            fail(f"{name}: waveform {i}: shape {w.shape} (want {n}), finite "
                  f"{np.isfinite(w).all()}, max |x| {np.abs(w).max()}")
-
-    a = np.concatenate(wavs)
-    f32 = np.concatenate(path["wavs"])
-    rel_f32 = float(np.linalg.norm(a - f32) / np.linalg.norm(f32))
-    log(f"codec bf16: bf16 vs f32 codec (not asserted): relative L2 {rel_f32:.4g}, max |diff| "
-        f"{np.abs(a - f32).max():.4g}, unclipped share {np.mean(np.abs(a) < 1):.4f}")
 
     def holding(x, block, rate):
         return hold_vocoder_block(x, block, rate, f"in codec_decode, C_in={x.shape[2]} "
@@ -2404,15 +2557,38 @@ def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
         codec_mod.vocoder_block = vocoder_block
         model.codec_params = full
     if not np.abs(plain).max() < 1:
-        fail(f"bf16 codec: the scaled final conv still reaches the clamp ({np.abs(plain).max()})")
+        fail(f"{name}: the scaled final conv still reaches the clamp ({np.abs(plain).max()})")
     rel = float(np.linalg.norm(kernel - plain) / np.linalg.norm(plain))
-    log(f"codec bf16: kernel route vs plain route on the card, before the clamp: relative L2 "
+    log(f"{name}: kernel route vs plain route on the card, before the clamp: relative L2 "
         f"{rel:.4g} (tol {BF16_CODEC_REL_L2}), max |diff| "
         f"{np.abs(kernel - plain).max() * 2 ** 20:.4g} of max |ref| "
         f"{np.abs(plain).max() * 2 ** 20:.4g}")
     if not rel <= BF16_CODEC_REL_L2:
-        fail(f"bf16 codec through the kernel disagrees with the plain route: {rel}")
-    audio_s = sum(want_len) / model.sample_rate
+        fail(f"{name}: bf16 codec through the kernel disagrees with the plain route: {rel}")
+    return wavs, wall
+
+
+def phase_codec_bf16(model_dir: str, smi: str, path: dict) -> None:
+    """The bf16 codec on the path phase's codes (``hold_codec_bf16``),
+    beside the f32 codec's waveforms and decode walls of phase 4."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    t0 = time.perf_counter()
+    model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
+                                          load_tokenizer=False)
+    log(f"codec bf16: from_pretrained (bf16 talker, bf16 codec) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    codes = path["codes"]
+    wavs, wall = hold_codec_bf16(model, codes, "codec bf16")
+    a = np.concatenate(wavs)
+    f32 = np.concatenate(path["wavs"])
+    rel_f32 = float(np.linalg.norm(a - f32) / np.linalg.norm(f32))
+    log(f"codec bf16: bf16 vs f32 codec (not asserted): relative L2 {rel_f32:.4g}, max |diff| "
+        f"{np.abs(a - f32).max():.4g}, unclipped share {np.mean(np.abs(a) < 1):.4f}")
+    audio_s = sum(w.shape[0] for w in wavs) / model.sample_rate
     walls = decode_walls(model, codes)
     log(f"codec bf16: decode_codes B={len(codes)} frames={codes[0].shape[0]} wall "
         f"{wall:.4f} s (f32 codec in the path phase {path['codec_s']:.4f} s), audio "
@@ -2848,6 +3024,360 @@ def check_first_packet_graph(model, prompt, params, smi: str) -> None:
         fail("graphs: the first packet's graph disagrees with the eager program")
 
 
+def clone_clips(seed: int = 7):
+    """The phase's reference clips as ``(waveform, rate)``: a few voiced
+    partials with a slow vibrato and noise, from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    clips = []
+    for seconds, rate in CLONE_CLIPS:
+        t = np.arange(int(seconds * rate)) / rate
+        f0 = rng.uniform(90, 220) * (1 + 0.03 * np.sin(2 * np.pi * 5 * t))
+        phase = 2 * np.pi * np.cumsum(f0) / rate
+        wav = sum(rng.uniform(0.05, 0.2) / k * np.sin(k * phase) for k in range(1, 6))
+        wav = wav * (0.6 + 0.4 * np.sin(2 * np.pi * rng.uniform(1, 3) * t) ** 2)
+        clips.append(((wav + 0.01 * rng.standard_normal(t.shape)).astype(np.float32), rate))
+    return clips
+
+
+def clone_prompts(model, prompt, texts, languages):
+    """The talker prompts ``generate_voice_clone`` builds for ``texts``."""
+    return model._request_prompts(**model._clone_request(texts, prompt, languages))[0]
+
+
+def _launches_of(fn):
+    """The kernels' launches while ``fn`` runs, and its result."""
+    import torch
+
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return {k: c.launches for k, c in counters.items()}, result, time.perf_counter() - t0
+
+
+def time_clone_prompts(model, clips, smi: str) -> None:
+    """``create_voice_clone_prompt`` per clip (after a warm-up call on the
+    same clip: the first call of a length pays cuDNN's plan search and the
+    first resample scipy's import), and its stages alone: resample (host),
+    Mimi encode, x-vector."""
+    import torch
+
+    from qwen_tts_tpu_torch.audio import resample
+
+    for (wav, rate), text in zip(clips, CLONE_REF_TEXTS):
+        model.create_voice_clone_prompt((wav, rate), ref_text=text)  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.create_voice_clone_prompt((wav, rate), ref_text=text)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        w24 = resample(wav, rate, 24000)
+        t2 = time.perf_counter()
+        codes = model.speech_encoder.encode([w24], 24000)[0]
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        model.extract_speaker_embedding(w24, 24000)
+        torch.cuda.synchronize()
+        t4 = time.perf_counter()
+        log(f"clone prompt: {wav.shape[0] / rate:.1f} s clip at {rate} Hz ({codes.shape[0]} "
+            f"frames): create_voice_clone_prompt {(t1 - t0) * 1e3:.1f} ms; alone: resample "
+            f"{(t2 - t1) * 1e3:.1f} ms, Mimi encode {(t3 - t2) * 1e3:.1f} ms, x-vector "
+            f"{(t4 - t3) * 1e3:.1f} ms | {smi}")
+
+
+def rvq_distances(params: dict, cfg, h, codes):
+    """The distance ``|r|² - 2 r·e + |e|²`` of each given code [B, Q, T] from
+    its quantizer's input ``r``, where each residual follows the given codes
+    (not the argmin); h: ``mimi_latents``. Where
+    two encodes of one clip first part in a quantizer branch, both codes'
+    distances share a residual: a near-tie shows as two close distances."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.mimi_encoder import _branches
+
+    out = []
+    q0 = 0
+    for proj, books in _branches(params, cfg, codes.shape[1]):
+        residual = h if proj is None else h @ proj
+        for embed in books:
+            idx = codes[:, q0]
+            e = embed[idx]  # [B, T, D]
+            out.append((residual * residual).sum(-1) - (2.0 * residual * e).sum(-1)
+                       + (e * e).sum(-1))
+            residual = residual - e
+            q0 += 1
+    return torch.stack(out, dim=1)
+
+
+def code_disagreements(params: dict, cfg, wav, a, b):
+    """Two encodes ``a``, ``b`` [B, Q, T] of ``wav`` (say, by two devices or
+    two packages) compared: (share of codes equal, the relative gap
+    ``|d_a - d_b| / max(d_a, d_b)`` of the two codes' distances where a
+    quantizer branch of a frame first parts). A gap near 0 is a near-tie;
+    the branch's later codes follow from it and have no gap of their own."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.mimi_encoder import mimi_latents
+
+    h = mimi_latents(params, cfg, wav)
+    da, db = rvq_distances(params, cfg, h, a), rvq_distances(params, cfg, h, b)
+    differ = a != b
+    gaps = []
+    for lo, hi in ((0, cfg.num_semantic_quantizers), (cfg.num_semantic_quantizers, a.shape[1])):
+        d = differ[:, lo:hi]
+        if d.shape[1] == 0:
+            continue
+        first = lo + d.int().argmax(dim=1, keepdim=True)  # [B, 1, T]
+        parted = d.any(dim=1)
+        pa, pb = da.gather(1, first)[:, 0][parted], db.gather(1, first)[:, 0][parted]
+        gaps.append((pa - pb).abs() / torch.maximum(pa.abs(), pb.abs()).clamp(min=1e-30))
+    return (~differ).float().mean().item(), torch.cat(gaps)
+
+
+def check_clone_encoders(card, cpu, clips) -> None:
+    """Card against CPU on the same clips: the Mimi codes of the padded
+    batch (as ``SpeechTokenizerEncoder.encode`` pads it) agree at
+    CLONE_CODE_AGREEMENT or more, every first disagreement a near-tie; the
+    x-vectors lie within CLONE_XVEC_REL_L2."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.audio import resample
+    from qwen_tts_tpu_torch.models.mimi_encoder import mimi_encode
+
+    w24 = [resample(w, rate, 24000) for w, rate in clips]
+    enc = cpu.speech_encoder
+    bucket = enc.downsample_rate * 8
+    batch = np.zeros((len(w24), -(-max(w.shape[0] for w in w24) // bucket) * bucket),
+                     np.float32)
+    for i, w in enumerate(w24):
+        batch[i, : w.shape[0]] = w
+    nq = enc.valid_num_quantizers
+    with torch.inference_mode():
+        on_card = mimi_encode(card.speech_encoder.params, enc.cfg,
+                              torch.as_tensor(batch, device=card.device), nq).cpu()
+        t0 = time.perf_counter()
+        on_cpu = mimi_encode(enc.params, enc.cfg, torch.from_numpy(batch), nq)
+        cpu_s = time.perf_counter() - t0
+        agreement, gaps = code_disagreements(enc.params, enc.cfg, torch.from_numpy(batch),
+                                             on_card, on_cpu)
+    worst = gaps.max().item() if gaps.numel() else 0.0
+    log(f"clone encode: card vs CPU Mimi codes of {len(w24)} clips ({tuple(on_cpu.shape)} "
+        f"padded to {batch.shape[1]} samples): agreement {agreement:.6f} (min "
+        f"{CLONE_CODE_AGREEMENT}), {gaps.numel()} first disagreement(s), largest relative "
+        f"distance gap {worst:.3g} (near-tie limit {CLONE_NEAR_TIE_REL}); CPU encode "
+        f"{cpu_s:.1f} s")
+    if agreement < CLONE_CODE_AGREEMENT or worst > CLONE_NEAR_TIE_REL:
+        fail("clone: card and CPU Mimi codes disagree beyond near-ties")
+    rels = []
+    for w in w24:
+        a, b = card.extract_speaker_embedding(w, 24000), cpu.extract_speaker_embedding(w, 24000)
+        rels.append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    log(f"clone encode: card vs CPU x-vectors, relative L2 per clip "
+        f"{[f'{r:.3g}' for r in rels]} (tol {CLONE_XVEC_REL_L2})")
+    if not max(rels) <= CLONE_XVEC_REL_L2:
+        fail("clone: card and CPU x-vectors disagree")
+
+
+def clone_parity(base_dir: str, clips) -> None:
+    """f32 on the card and on the CPU: the encoders (``check_clone_encoders``),
+    then the card's ICL prompt of two clips saved as a voice file (``.pt``),
+    loaded, and greedy ``generate_voice_clone`` codes from it on both:
+    card == CPU. Going through the file keeps the encoders' last bits out
+    of the comparison of the decode."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    models = {}
+    for device in ("cuda", "cpu"):
+        models[device] = Qwen3TTSModel.from_pretrained(base_dir, talker_dtype=torch.float32,
+                                                       device=device, load_tokenizer=False)
+        models[device].tokenizer = ChatTemplateTokenizer()
+    card, cpu = models["cuda"], models["cpu"]
+    check_clone_encoders(card, cpu, clips)
+    path = os.path.join(base_dir, "voice.pt")
+    card.save_voice_clone_prompt(
+        card.create_voice_clone_prompt(clips[:2], ref_text=CLONE_REF_TEXTS[:2]), path)
+    prompt = Qwen3TTSModel.load_voice_clone_prompt(path)
+    kw = dict(do_sample=False, subtalker_dosample=False, repetition_penalty=1.0,
+              max_new_tokens=9, min_new_tokens=10)
+    texts, languages = TEXTS[:2], ["english", "auto"]
+    codes = {}
+    for device, model in models.items():
+        t0 = time.perf_counter()
+        out, _ = model.generate_codes_from_prompts(
+            clone_prompts(model, prompt, texts, languages), model._merge_params(**kw))
+        codes[device] = np.stack(out)
+        log(f"clone parity: f32 greedy clone codes on {device} {codes[device].shape} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    a, b = codes["cuda"], codes["cpu"]
+    equal = a.shape == b.shape and bool((a == b).all())
+    log(f"clone parity: card and CPU greedy codes from the voice file "
+        f"{'equal' if equal else 'differ'} ({a.shape[0]} rows x {a.shape[1]} frames x "
+        f"{a.shape[2]} groups; reference frames {[c.shape[0] for c in prompt['ref_code']]})")
+    if not equal:
+        fail(f"clone parity: card and CPU codes differ at (row, frame, group) "
+             f"{np.argwhere(a != b)[:5].tolist()}")
+
+
+def hold_clone_attention(bucket: int, lengths) -> dict:
+    """Both decode-attention kernels against their plain versions at the
+    clone batch's talker cache, S_max = its prompt bucket + MAX_NEW, whose
+    split no earlier phase holds: the generic rows, then the batch's own
+    left pads at its first and last decode step. Returns each kernel's
+    largest error."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    s_max = bucket + MAX_NEW
+    valid_from = [bucket - n for n in lengths]
+    rows = [([bucket + 1] * len(lengths), valid_from), ([s_max] * len(lengths), valid_from)]
+    return {name: hold_attention_at(gen, (*ATTN_TALKER, s_max), int8, "clone talker", rows)
+            for name, int8 in (("decode_attention", False), ("decode_attention_int8", True))}
+
+
+def phase_clone(base_dir: str, smi: str) -> dict:
+    """Voice clone at the flagship dims (phase 11) on a Base checkpoint: the
+    published ECAPA-TDNN and Mimi encoder widths. Prompts from four ragged
+    reference clips (ICL) and one x-vector-only prompt; generate_voice_clone
+    for the batch of 4 (bf16 talker, f32 codec, EOS banned, MAX_NEW frames)
+    through the graphs, then in the serving mode; the bf16 codec on the merged
+    reference + generated codes; f32 card against CPU. Returns each path's
+    kernel launches."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    t0 = time.perf_counter()
+    model = Qwen3TTSModel.from_pretrained(base_dir)
+    model.tokenizer = ChatTemplateTokenizer()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    enc = model.speech_encoder
+    log(f"clone: from_pretrained of the Base checkpoint (bf16 talker, f32 codec, f32 speaker "
+        f"encoder) in {load_s:.1f} s, the Mimi encoder read in {time.perf_counter() - t0:.1f} s "
+        f"({enc.cfg.num_hidden_layers} x {enc.cfg.hidden_size} transformer, "
+        f"{enc.cfg.num_quantizers} quantizers of {enc.cfg.codebook_size} x "
+        f"{enc.cfg.codebook_dim}, {enc.valid_num_quantizers} kept)")
+    if model.speaker_params is None or model.cfg.tts_model_type != "base":
+        fail("clone: the Base checkpoint's speaker encoder was not read")
+    tk, se = model.cfg.talker, model.cfg.speaker_encoder
+    clips = clone_clips()
+    time_clone_prompts(model, clips, smi)
+    prompt = model.create_voice_clone_prompt(clips, ref_text=CLONE_REF_TEXTS)
+    xvec_prompt = model.create_voice_clone_prompt(clips[0], x_vector_only_mode=True)
+    xv = np.stack(prompt["ref_spk_embedding"])
+    ref_frames = [c.shape[0] for c in prompt["ref_code"]]
+    want_frames = [-(-int(sec * 24000) // model.cfg.codec.encode_downsample_rate)
+                   for sec, _ in CLONE_CLIPS]
+    apart = min(np.linalg.norm(xv[i] - xv[j]) / np.linalg.norm(xv[j])
+                for i in range(len(xv)) for j in range(i))
+    log(f"clone: x-vectors {xv.shape}, finite {np.isfinite(xv).all()}, smallest relative "
+        f"distance between clips {apart:.3g}; reference codes {ref_frames} frames x "
+        f"{prompt['ref_code'][0].shape[1]} groups (distinct group-0 codes "
+        f"{[len(np.unique(c[:, 0])) for c in prompt['ref_code']]})")
+    if (xv.shape != (len(clips), se.enc_dim) or not np.isfinite(xv).all() or not apart > 1e-3
+            or ref_frames != want_frames or prompt["ref_code"][0].shape[1] != tk.num_code_groups
+            or not np.array_equal(xvec_prompt["ref_spk_embedding"][0], xv[0])):
+        fail("clone: unexpected prompts")
+
+    kw = dict(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1, seed=0)
+    languages = ["english", "auto", "chinese", "english"]
+    per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
+    up = model.cfg.codec.decode_upsample_rate
+    graphs.clear()
+    model.generate_voice_clone(TEXTS, prompt, languages, **kw)  # warm-up: the capture
+    log_programs("clone", smi)
+    torch.cuda.reset_peak_memory_stats()
+    launches, (wavs, sr), wall = _launches_of(
+        lambda: model.generate_voice_clone(TEXTS, prompt, languages, **kw))
+    expected = {"decode_attention": MAX_NEW * per_frame, "decode_attention_int8": 0,
+                "subtalker_step": 0, "vocoder_block": 0, "int8_matmul": 0}
+    log(f"clone: launches {launches}, expected {expected} (decode_attention {MAX_NEW} frames x "
+        f"{per_frame}, captured launches x replays)")
+    if launches != expected:
+        fail("the clone path did not launch the kernels as expected")
+    for i, w in enumerate(wavs):
+        if w.shape != (FRAMES * up,) or not np.isfinite(w).all() or np.abs(w).max() > 1:
+            fail(f"clone waveform {i}: shape {w.shape} (want {FRAMES * up} after the cut of "
+                 f"{ref_frames[i]} reference frames), finite {np.isfinite(w).all()}, max |x| "
+                 f"{np.abs(w).max()}")
+    audio_s = len(wavs) * FRAMES * up / sr
+    log(f"clone: generate_voice_clone B={len(wavs)} frames={FRAMES} (+ {ref_frames} reference "
+        f"frames in the codec decode) wall {wall:.3f} s, RTF(audio/wall) {audio_s / wall:.3f}, "
+        f"peak mem allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | {smi}")
+
+    prompts = clone_prompts(model, prompt, TEXTS, languages)
+    bucket = gen_mod.batch_prompts(prompts)[0].shape[1]
+    errs = hold_clone_attention(bucket, [p.embeds.shape[0] for p in prompts])
+    params = model._merge_params(**kw)
+    loops, calls = [], []
+    for _ in range(5):  # in turns: the decode loop, then the whole call
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        codes, _ = model.generate_codes_from_prompts(prompts, params)
+        torch.cuda.synchronize()
+        loops.append(time.perf_counter() - t0)
+        calls.append(_launches_of(
+            lambda: model.generate_voice_clone(TEXTS, prompt, languages, **kw))[2])
+    log(f"clone graph: over 5 runs, median (min..max): decode loop "
+        f"{_spread([w / MAX_NEW * 1e3 for w in loops])} ms/step (prompt bucket "
+        f"{bucket}); "
+        f"generate_voice_clone {_spread(calls, '{:.3f}')} s, RTF(audio/wall) "
+        f"{_spread([audio_s / w for w in calls], '{:.3f}')} | {smi}")
+    xw, _ = model.generate_voice_clone(TEXTS, xvec_prompt, languages, **kw)
+    if any(w.shape != (FRAMES * up,) or not np.isfinite(w).all() for w in xw):
+        fail("clone: the x-vector-only prompt's waveforms are wrong")
+    log(f"clone: x-vector-only prompt broadcast over {len(xw)} texts: {len(xw)} waveforms of "
+        f"{FRAMES * up} samples")
+    merged = [np.concatenate([rc, c], axis=0) for rc, c in zip(prompt["ref_code"], codes)]
+
+    # The serving mode on the same prompts.
+    model.quantize_for_serving(talker=True, kv=True)
+    model.generate_voice_clone(TEXTS, prompt, languages, **kw)  # warm-up: the capture
+    serving, (swavs, _), swall = _launches_of(
+        lambda: model.generate_voice_clone(TEXTS, prompt, languages, **kw))
+    layers, g = tk.num_hidden_layers, tk.num_code_groups
+    expected = {"decode_attention": 0, "decode_attention_int8": MAX_NEW * layers,
+                "subtalker_step": MAX_NEW * g, "vocoder_block": 0,
+                "int8_matmul": (1 + MAX_NEW) * layers * len(LAYER_LAUNCHES) + MAX_NEW * (g - 1)}
+    log(f"clone serving: launches {serving}, expected {expected} (as phase 6); wall "
+        f"{swall:.3f} s, RTF(audio/wall) {audio_s / swall:.3f} | {smi}")
+    if serving != expected:
+        fail("the clone serving path did not launch the kernels as expected")
+    if any(w.shape != (FRAMES * up,) or not np.isfinite(w).all() for w in swavs):
+        fail("clone serving: wrong waveforms")
+    casts = count_int8_weight_casts(model, clone_prompts(model, prompt, TEXTS, languages),
+                                    dict(kw, max_new_tokens=3, min_new_tokens=4))
+    log(f"clone serving: int8 weights cast whole in a 3-step decode: {casts}")
+    if casts:
+        fail("the clone serving path casts int8 weights whole")
+    del model
+    graphs.clear()
+    torch.cuda.empty_cache()
+
+    # The bf16 codec on the merged reference + generated codes.
+    codec = Qwen3TTSModel.from_pretrained(base_dir, codec_dtype=torch.bfloat16,
+                                          load_tokenizer=False)
+    hold_codec_bf16(codec, merged, "clone codec bf16")
+    del codec
+    torch.cuda.empty_cache()
+    clone_parity(base_dir, clips)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return {"launches": launches, "serving": serving, "attention_err": errs}
+
+
 def main() -> int:
     smi = phase_device()
     import torch
@@ -2880,6 +3410,13 @@ def main() -> int:
         phase_codec_bf16(model_dir, smi, path)
         stream = phase_stream(model_dir, smi)
         phase_graphs(model_dir, smi)
+        base_dir = os.path.join(model_dir, "base")
+        t0 = time.perf_counter()
+        write_base_checkpoint(model_dir, base_dir, cfg, cfg.codec.encoder, seed=4321)
+        log(f"checkpoint: Base variant (links to the talker and codec, plus the speaker "
+            f"and Mimi encoders at the published widths) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        clone = phase_clone(base_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.
@@ -2888,6 +3425,8 @@ def main() -> int:
     records[2]["launches"] = serving["launches"]["subtalker_step"]
     records[3]["launches"] = stream["vocoder_block"]
     records[4]["launches"] = serving["launches"]["int8_matmul"]
+    for rec in records[:2]:
+        rec["max_abs_err"] = max(rec["max_abs_err"], clone["attention_err"][rec["name"]])
     print(json.dumps({"kernels": records}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of ``qwen_tts_tpu/config.py`` (talker, code predictor,
-12 Hz codec, speaker encoder and top-level TTS configs; the 25 Hz tokenizer's
+12 Hz codec with its Mimi encoder, speaker encoder and top-level TTS configs
+(Base checkpoints' ``speaker_encoder_config`` included); the 25 Hz tokenizer's
 configs wait for the port of that tokenizer). Plain frozen dataclasses that
 mirror the reference configs
 (qwen_tts/core/models/configuration_qwen3_tts.py and
@@ -229,13 +230,65 @@ class CodecDecoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MimiEncoderConfig:
+    """The Mimi fields the 12 Hz encode path reads (``encoder_config`` of
+    ``speech_tokenizer/config.json``); defaults are the published Mimi's."""
+
+    num_filters: int = 64
+    audio_channels: int = 1
+    kernel_size: int = 7
+    residual_kernel_size: int = 3
+    last_kernel_size: int = 3
+    dilation_growth_rate: int = 2
+    num_residual_layers: int = 1
+    upsampling_ratios: Tuple[int, ...] = (8, 6, 5, 4)
+    compress: int = 2
+    use_conv_shortcut: bool = False
+    hidden_size: int = 512
+    num_hidden_layers: int = 8
+    num_attention_heads: int = 8
+    num_key_value_heads: int = 8
+    head_dim: int = 64
+    intermediate_size: int = 2048
+    norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    sliding_window: int = 250
+    codebook_size: int = 2048
+    codebook_dim: int = 256
+    vector_quantization_hidden_dimension: int = 256
+    num_quantizers: int = 32
+    num_semantic_quantizers: int = 1
+    frame_rate: float = 12.5
+    encodec_frame_rate: float = 25.0
+    sampling_rate: int = 24000
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "MimiEncoderConfig":
+        d = dict(d)
+        if "upsampling_ratios" in d:
+            d["upsampling_ratios"] = tuple(d["upsampling_ratios"])
+        keys = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in keys})
+
+    @property
+    def encodec_downsample(self) -> int:
+        total = 1
+        for r in self.upsampling_ratios:
+            total *= r
+        return total
+
+
+@dataclasses.dataclass(frozen=True)
 class CodecConfig:
-    """Top-level 12 Hz tokenizer config (decode side).
+    """Top-level 12 Hz tokenizer config: the decoder, and what the encode
+    path reads (``encoder_config``, ``encoder_valid_num_quantizers``,
+    ``encode_downsample_rate``).
 
     Reference: configuration_qwen3_tts_tokenizer_v2.py:143-169.
     """
 
     decoder: CodecDecoderConfig = dataclasses.field(default_factory=CodecDecoderConfig)
+    encoder: MimiEncoderConfig = dataclasses.field(default_factory=MimiEncoderConfig)
     encoder_valid_num_quantizers: int = 16
     input_sample_rate: int = 24000
     output_sample_rate: int = 24000
@@ -246,9 +299,11 @@ class CodecConfig:
     def from_dict(cls, d: Mapping) -> "CodecConfig":
         d = dict(d)
         dec = d.pop("decoder_config", None) or {}
+        enc = d.pop("encoder_config", None) or {}
         keys = {f.name for f in dataclasses.fields(cls)}
-        kw = {k: v for k, v in d.items() if k in keys and k != "decoder"}
-        return cls(decoder=CodecDecoderConfig.from_dict(dec), **kw)
+        kw = {k: v for k, v in d.items() if k in keys and k not in ("decoder", "encoder")}
+        return cls(decoder=CodecDecoderConfig.from_dict(dec),
+                   encoder=MimiEncoderConfig.from_dict(enc), **kw)
 
 
 @dataclasses.dataclass(frozen=True)

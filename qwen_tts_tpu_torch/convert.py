@@ -6,6 +6,13 @@ on the JAX side, so this module needs neither jax nor ``ml_dtypes``) and
 returns the port's trees: the same keys, nesting and layouts, as tensors on
 one device. Both packages then compute the same thing.
 
+``convert_encoder_tree`` carries the JAX speaker-encoder (ECAPA-TDNN) and
+Mimi-encoder trees across in float32. JAX stores their convs channels-last
+``[K, C_in, C_out]``; the port runs them channels-first on ``[C_out, C_in,
+K]``, the checkpoint's own layout, so those leaves are transposed. The Mimi
+tree's ``dilation`` and ``stride`` leaves are dropped: the port reads them
+from the config.
+
 Only floating weights take the requested dtype. Integer leaves (int8 weights
 and tables of a quantized tree) keep their own dtype, and so do scales: the
 ``*_s`` weight scales, stored bf16 by ``quantize_trunk_int8`` whatever the
@@ -67,3 +74,26 @@ def convert_params(
         convert_tree(subtalker, device, talker_dtype),
         None if codec is None else convert_tree(codec, device, codec_dtype),
     )
+
+
+# Conv-weight keys of the encoder trees (the 3-D ones are convs; ``fc_w`` and
+# the SE block's ``w1``/``w2`` are linears, kept [in, out]).
+_ENCODER_CONVS = ("w", "conv_w", "init_w", "final_w", "down_w")
+
+
+def convert_encoder_tree(tree: Any, device: Device = None, key: Optional[str] = None) -> Any:
+    """A JAX speaker-encoder or Mimi-encoder tree (numpy leaves) → the
+    port's tree in float32 on ``device`` (CUDA unless given), convs
+    transposed to ``[C_out, C_in, K]``."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: convert_encoder_tree(v, device, k) for k, v in tree.items()
+                if k not in ("dilation", "stride")}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(convert_encoder_tree(v, device, key) for v in tree)
+    if tree is None:
+        return None
+    a = np.asarray(tree, np.float32)
+    if key in _ENCODER_CONVS and a.ndim == 3:
+        a = a.transpose(2, 1, 0)
+    return _tensor(a, device, torch.float32)

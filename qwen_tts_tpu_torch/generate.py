@@ -117,14 +117,25 @@ def build_prompt(
     *,
     language: str = "auto",
     speaker: Optional[str] = None,
+    speaker_embed: Optional[np.ndarray] = None,  # x-vector slot (Base models)
     instruct_ids: Optional[Sequence[int]] = None,
     non_streaming: bool = False,
+    ref_ids: Optional[Sequence[int]] = None,      # ICL voice clone
+    ref_codes: Optional[np.ndarray] = None,       # [T_ref, G]
+    st_params: Optional[dict] = None,             # for the ref codes' embeddings
 ) -> Prompt:
     """Build the dual-track prefix for one utterance.
 
     ``text_ids`` is the full chat-templated id sequence
     ``[im_start, assistant, \\n, TEXT..., im_end, \\n, im_start, assistant, \\n]``:
-    positions [0:3] are the role header, [3:-5] the content."""
+    positions [0:3] are the role header, [3:-5] the content.
+
+    A voice clone passes its x-vector as ``speaker_embed`` (float32; it takes
+    the speaker slot, and the pieces it meets are summed in float32, as the
+    JAX package's numpy prompt does), and in ICL mode the reference text's ids
+    ``ref_ids`` (``build_ref_text`` tokenized) with its codes ``ref_codes``
+    (``icl_ref_codes`` of the voice file's codes), whose embeddings come
+    from the talker's and ``st_params``' tables."""
     tk = cfg.talker
     text_ids = np.asarray(text_ids, np.int64)
     if text_ids.ndim != 1 or text_ids.shape[0] < 8:
@@ -145,7 +156,9 @@ def build_prompt(
 
     # Speaker slot.
     spk_vec: Optional[torch.Tensor] = None
-    if speaker:
+    if speaker_embed is not None:
+        spk_vec = torch.as_tensor(np.asarray(speaker_embed, np.float32), device=device)
+    elif speaker:
         sid = tk.speaker_codec_id(speaker)
         if sid is None:
             raise ValueError(f"Speaker {speaker!r} not supported")
@@ -189,6 +202,15 @@ def build_prompt(
     text_track = torch.cat([tts_pad[None].expand(n_codec - 2, -1), tts_bos[None]], dim=0)
     pieces.append(text_track + codec_prefix[:-1])
 
+    if ref_codes is not None:
+        if st_params is None:
+            raise ValueError("ICL prompts need st_params for ref-code embeddings")
+        icl, trailing = _build_icl(params, st_params, cfg, text_ids,
+                                   np.asarray(ref_ids, np.int64), ref_codes, tts_pad,
+                                   tts_eos, non_streaming)
+        pieces.append(icl)
+        return Prompt(torch.cat(pieces, dim=0), trailing, tts_pad)
+
     if non_streaming:
         # Whole text + tts_eos on the text track, each summed with codec_pad;
         # then tts_pad + codec_bos.
@@ -204,6 +226,59 @@ def build_prompt(
         pieces.append(etext(text_ids[3:4]) + codec_prefix[-1:])
         trailing = torch.cat([etext(text_ids[4:-5]), tts_eos[None]], dim=0)
     return Prompt(torch.cat(pieces, dim=0), trailing, tts_pad)
+
+
+def icl_ref_codes(ref_codes: np.ndarray, num_code_groups: int) -> np.ndarray:
+    """A clone's reference codes [T_ref, >= G] as the talker takes them: the
+    first ``num_code_groups`` columns (the columns the decode's merge keeps;
+    a torch gather would refuse the JAX package's clamped extra groups).
+    Narrower codes come from a model with fewer groups and raise."""
+    rc = np.asarray(ref_codes, np.int64)
+    if rc.ndim != 2 or rc.shape[1] < num_code_groups:
+        raise ValueError(
+            f"ref_codes have {rc.shape[-1] if rc.ndim else 0} groups, talker emits "
+            f"{num_code_groups} — ICL clone needs equal widths")
+    return rc[:, :num_code_groups]
+
+
+def _build_icl(
+    params: dict,
+    st_params: dict,
+    cfg: TTSConfig,
+    text_ids: np.ndarray,
+    ref_ids: np.ndarray,
+    ref_codes: np.ndarray,
+    tts_pad: torch.Tensor,
+    tts_eos: torch.Tensor,
+    non_streaming: bool,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """ICL voice-clone prefix: the reference text then the target text on the
+    text track, over codec_bos and the reference codes' Σ-embeddings on the
+    codec track. Returns (icl_embeds, trailing_text): streaming sums the
+    tracks position by position (the longer text trails into the decode),
+    ``non_streaming`` lays the text (over codec_pad) before the codes (over
+    tts_pad)."""
+    tk = cfg.talker
+    device = params["codec_embedding"].device
+    ids = torch.as_tensor(np.concatenate([ref_ids[3:-2], text_ids[3:-5]]), device=device)
+    text_embed = torch.cat([talker_mod.embed_text(params, ids), tts_eos[None]], dim=0)
+    codes = torch.as_tensor(np.asarray(ref_codes, np.int64), device=device)
+    if codes.ndim != 2 or codes.shape[1] != tk.num_code_groups:
+        raise ValueError(f"ref_codes of shape {tuple(codes.shape)}, talker emits "
+                         f"{tk.num_code_groups} groups: cut them with icl_ref_codes")
+    sums = st_mod.embed_groups_sum(st_params, params["codec_embedding"], codes)
+    special = talker_mod.embed_codec(
+        params, torch.as_tensor([tk.codec_bos_id, tk.codec_pad_id], device=device))
+    codec_embed = torch.cat([special[:1], sums], dim=0)
+
+    text_lens, codec_lens = text_embed.shape[0], codec_embed.shape[0]
+    if non_streaming:
+        icl = torch.cat([text_embed + special[1][None], codec_embed + tts_pad[None]], dim=0)
+        return icl, tts_pad[None]
+    if text_lens > codec_lens:
+        return text_embed[:codec_lens] + codec_embed, text_embed[codec_lens:]
+    padded = torch.cat([text_embed, tts_pad[None].expand(codec_lens - text_lens, -1)], dim=0)
+    return padded + codec_embed, tts_pad[None]
 
 
 def batch_prompts(

@@ -25,6 +25,7 @@ import torch
 
 from qwen_tts_tpu_torch.config import CodecDecoderConfig, TalkerConfig, TTSConfig
 from qwen_tts_tpu_torch.io.safetensors import MultiSafeTensors
+from qwen_tts_tpu_torch.models.speaker import load_speaker_encoder
 from qwen_tts_tpu_torch.utils import Device, resolve_device
 
 
@@ -246,10 +247,11 @@ def load_checkpoint(
 ):
     """Load a checkpoint directory onto ``device`` (CUDA unless given).
 
-    Returns (cfg, talker, subtalker, codec). The codec lives under
+    Returns (cfg, talker, subtalker, codec, speaker). The codec lives under
     ``speech_tokenizer/``; a missing codec is tolerated (codec is None). The
-    speaker encoder of Base checkpoints is not read: it belongs to voice
-    cloning, which this package does not have yet."""
+    speaker encoder (float32) is present on Base checkpoints only; elsewhere
+    speaker is None. The Mimi encoder is not read here: the model reads it
+    when it first encodes reference audio."""
     device = resolve_device(device)
     if cfg is None:
         cfg = TTSConfig.from_pretrained(model_dir)
@@ -257,6 +259,9 @@ def load_checkpoint(
     try:
         talker = load_talker(st, cfg.talker, talker_dtype, device)
         subtalker = load_subtalker(st, cfg.talker, talker_dtype, device)
+        speaker = None
+        if "speaker_encoder.blocks.0.conv.weight" in st:
+            speaker = load_speaker_encoder(st, cfg.speaker_encoder, device)
     finally:
         st.close()
     codec = None
@@ -268,4 +273,4 @@ def load_checkpoint(
             codec = load_codec(st_codec, cfg.codec.decoder, codec_dtype, device)
         finally:
             st_codec.close()
-    return cfg, talker, subtalker, codec
+    return cfg, talker, subtalker, codec, speaker

@@ -1,6 +1,8 @@
 """User-facing API (PyTorch counterpart of ``qwen_tts_tpu/pipeline.py``):
 ``Qwen3TTSModel.from_pretrained`` → ``generate_custom_voice`` /
-``generate_voice_design`` / ``stream_custom_voice``, optionally after
+``generate_voice_design`` / ``stream_custom_voice``, and on Base checkpoints
+``create_voice_clone_prompt`` → ``generate_voice_clone`` (voice files through
+``save_voice_clone_prompt`` / ``load_voice_clone_prompt``), optionally after
 ``quantize_for_serving``.
 
 Tokenize → build dual-track prompts → prefill + decode loop → per-row EOS
@@ -23,6 +25,9 @@ import numpy as np
 import torch
 
 from qwen_tts_tpu_torch import graphs
+from qwen_tts_tpu_torch import voice_prompt
+from qwen_tts_tpu_torch.audio import normalize_audio_inputs, resample
+from qwen_tts_tpu_torch.codec_encoder import SpeechTokenizerEncoder
 from qwen_tts_tpu_torch.config import TTSConfig
 from qwen_tts_tpu_torch.generate import (
     GenerationParams,
@@ -37,10 +42,12 @@ from qwen_tts_tpu_torch.generate import (
     decode_segment,
     fill_trailing,
     generate_codes,
+    icl_ref_codes,
     trailing_rows,
 )
 from qwen_tts_tpu_torch.io.loader import load_checkpoint
 from qwen_tts_tpu_torch.models import codec as codec_mod
+from qwen_tts_tpu_torch.models.speaker import mel_spectrogram, speaker_encoder_forward
 from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8
 from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import pack_subtalker_weights
@@ -178,15 +185,30 @@ class Qwen3TTSModel:
         codec_params: Optional[dict] = None,
         tokenizer=None,
         generate_defaults: Optional[Dict[str, Any]] = None,
+        speaker_params: Optional[dict] = None,
     ):
         self.cfg = cfg
         self.talker_params = talker_params
         self.subtalker_params = subtalker_params
         self.codec_params = codec_params
+        self.speaker_params = speaker_params
         self.tokenizer = tokenizer
         self.generate_defaults = generate_defaults or {}
         self.device = talker_params["norm"].device
         self.kv_int8 = False  # set by quantize_for_serving(kv=True)
+        self.model_dir: Optional[str] = None
+        self._speech_encoder: Optional[SpeechTokenizerEncoder] = None
+
+    @property
+    def speech_encoder(self) -> SpeechTokenizerEncoder:
+        """The 12 Hz encode path (Mimi, float32 on the model's device), read
+        from ``model_dir/speech_tokenizer`` at first use."""
+        if self._speech_encoder is None:
+            if self.model_dir is None:
+                raise RuntimeError("no model_dir — load via from_pretrained")
+            self._speech_encoder = SpeechTokenizerEncoder.from_pretrained(
+                os.path.join(self.model_dir, "speech_tokenizer"), device=self.device)
+        return self._speech_encoder
 
     @classmethod
     def from_pretrained(
@@ -201,7 +223,7 @@ class Qwen3TTSModel:
         """Load a checkpoint directory onto ``device`` (CUDA unless given).
         Without ``transformers`` or tokenizer files the tokenizer stays None;
         assign ``model.tokenizer`` to inject one."""
-        cfg, talker, subtalker, codec = load_checkpoint(
+        cfg, talker, subtalker, codec, speaker = load_checkpoint(
             model_dir, talker_dtype=talker_dtype, codec_dtype=codec_dtype,
             device=resolve_device(device))
         tokenizer = None
@@ -217,7 +239,10 @@ class Qwen3TTSModel:
         if os.path.exists(gc_path):
             with open(gc_path, encoding="utf-8") as f:
                 gen_defaults = json.load(f)
-        return cls(cfg, talker, subtalker, codec, tokenizer, gen_defaults)
+        obj = cls(cfg, talker, subtalker, codec, tokenizer, gen_defaults,
+                  speaker_params=speaker)
+        obj.model_dir = model_dir
+        return obj
 
     def quantize_for_serving(self, *, talker: bool = False,
                              kv: bool = False) -> "Qwen3TTSModel":
@@ -260,6 +285,10 @@ class Qwen3TTSModel:
         return f"<|im_start|>assistant\n{text}<|im_end|>\n<|im_start|>assistant\n"
 
     @staticmethod
+    def build_ref_text(text: str) -> str:
+        return f"<|im_start|>assistant\n{text}<|im_end|>\n"
+
+    @staticmethod
     def build_instruct_text(instruct: str) -> str:
         return f"<|im_start|>user\n{instruct}<|im_end|>\n"
 
@@ -298,10 +327,12 @@ class Qwen3TTSModel:
         )
 
     def generate_codes_from_prompts(
-        self, prompts: Sequence[Prompt], params: GenerationParams,
+        self, prompts: Sequence[Prompt], params: GenerationParams, *,
+        trim_last_on_budget: bool = True,
     ) -> Tuple[List[np.ndarray], Dict[str, Any]]:
         """Run the decode loop; returns per-utterance [T_i, G] int32 codes and
-        ``{"num_gen", "stopped"}``."""
+        ``{"num_gen", "stopped"}``. ``trim_last_on_budget=False`` keeps the
+        final frame of a row that ran out of budget (``generate_codes``)."""
         embeds, mask, trailing, _ = batch_prompts(prompts)
         dtype = self.talker_params["norm"].dtype
         generator = torch.Generator(device=self.device).manual_seed(params.seed)
@@ -312,6 +343,7 @@ class Qwen3TTSModel:
             st_sampling=params.subtalker_sampling(),
             max_new_tokens=params.max_new_tokens,
             generator=generator,
+            trim_last_on_budget=trim_last_on_budget,
             kv_int8=self.kv_int8,
         )
         codes = out.codes.cpu().numpy().astype(np.int32)
@@ -344,16 +376,23 @@ class Qwen3TTSModel:
         up = self.cfg.codec.decode_upsample_rate
         return [wav[i, : lengths[i] * up] for i in range(len(codes_list))]
 
-    def _generate(
+    def _request_prompts(
         self,
         texts: List[str],
         speakers: List[Optional[str]],
         languages: List[str],
         instructs: Optional[List[Optional[str]]] = None,
+        speaker_embeds: Optional[List[Optional[np.ndarray]]] = None,
+        ref_ids: Optional[List[Optional[np.ndarray]]] = None,
+        ref_codes: Optional[List[Optional[np.ndarray]]] = None,
         non_streaming: bool = False,
-        **kwargs,
-    ) -> Tuple[List[np.ndarray], int]:
-        params = self._merge_params(**kwargs)
+    ) -> Tuple[List[Prompt], Optional[List[Optional[np.ndarray]]]]:
+        """A request's talker prompts, and its reference codes cut to the
+        talker's groups (``icl_ref_codes``, the one place a request's codes
+        are cut)."""
+        if ref_codes is not None:
+            groups = self.cfg.talker.num_code_groups
+            ref_codes = [None if c is None else icl_ref_codes(c, groups) for c in ref_codes]
         prompts = []
         for i, text in enumerate(texts):
             ids = self._tokenize(self.build_assistant_text(text))
@@ -362,11 +401,42 @@ class Qwen3TTSModel:
                          if instruct else None)
             prompts.append(build_prompt(
                 self.talker_params, self.cfg, ids, language=languages[i],
-                speaker=speakers[i], instruct_ids=instr_ids,
-                non_streaming=non_streaming,
+                speaker=speakers[i],
+                speaker_embed=None if speaker_embeds is None else speaker_embeds[i],
+                instruct_ids=instr_ids, non_streaming=non_streaming,
+                ref_ids=None if ref_ids is None else ref_ids[i],
+                ref_codes=None if ref_codes is None else ref_codes[i],
+                st_params=self.subtalker_params,
             ))
+        return prompts, ref_codes
+
+    def _generate(
+        self,
+        texts: List[str],
+        speakers: List[Optional[str]],
+        languages: List[str],
+        instructs: Optional[List[Optional[str]]] = None,
+        speaker_embeds: Optional[List[Optional[np.ndarray]]] = None,
+        ref_ids: Optional[List[Optional[np.ndarray]]] = None,
+        ref_codes: Optional[List[Optional[np.ndarray]]] = None,
+        non_streaming: bool = False,
+        **kwargs,
+    ) -> Tuple[List[np.ndarray], int]:
+        params = self._merge_params(**kwargs)
+        prompts, ref_codes = self._request_prompts(
+            texts, speakers, languages, instructs, speaker_embeds, ref_ids, ref_codes,
+            non_streaming)
         codes, _ = self.generate_codes_from_prompts(prompts, params)
-        return self.decode_codes(codes), self.sample_rate
+        if ref_codes is None:
+            return self.decode_codes(codes), self.sample_rate
+        # Voice clone: the reference codes lead the codec decode (its left
+        # context), and their share of the waveform is cut after it.
+        cut = [0 if rc is None else rc.shape[0] for rc in ref_codes]
+        merged = [c if rc is None else np.concatenate([rc.astype(np.int32), c], axis=0)
+                  for rc, c in zip(ref_codes, codes)]
+        up = self.cfg.codec.decode_upsample_rate
+        wavs = self.decode_codes(merged)
+        return [w[n * up:] for w, n in zip(wavs, cut)], self.sample_rate
 
     def generate_custom_voice(
         self,
@@ -404,6 +474,162 @@ class Qwen3TTSModel:
         self._validate(speakers, languages)
         return self._generate(texts, speakers, languages, instructs,
                               non_streaming=non_streaming_mode, **kwargs)
+
+    def clone_prompt_inputs(
+        self, voice_clone_prompt: Dict[str, Any], index: int = 0
+    ) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], Optional[np.ndarray]]:
+        """One item of a voice-clone prompt dict → the ``(speaker_embed,
+        ref_ids, ref_codes)`` that ``build_prompt`` takes; the reference
+        text goes through ``build_ref_text``. ICL items give all three,
+        x-vector-only items the x-vector alone."""
+        p = voice_clone_prompt
+
+        def col(name, default):
+            v = p.get(name)
+            if not v:
+                return default
+            if index >= len(v):
+                raise ValueError(f"voice_clone_prompt[{name!r}] has {len(v)} item(s); "
+                                 f"index {index} out of range")
+            return v[index]
+
+        spk = col("ref_spk_embedding", None)
+        icl = col("icl_mode", True)
+        use_spk = col("x_vector_only_mode", False) or icl
+        speaker_embed = np.asarray(spk) if (use_spk and spk is not None) else None
+        ref_code = col("ref_code", None)
+        if icl and ref_code is not None:
+            ref_ids = self._tokenize(self.build_ref_text(col("ref_text", None) or ""))
+            return speaker_embed, ref_ids, np.asarray(ref_code, np.int32)
+        return speaker_embed, None, None
+
+    def _clone_request(
+        self,
+        text: MaybeList,
+        voice_clone_prompt: Optional[Any] = None,
+        language: MaybeList = "auto",
+        non_streaming_mode: bool = False,
+        *,
+        ref_audio=None,
+        ref_text: Optional[MaybeList] = None,
+        x_vector_only_mode: bool = False,
+    ) -> Dict[str, Any]:
+        """``generate_voice_clone``'s request as ``_request_prompts`` /
+        ``_generate`` take it: the prompt built or normalised, one item
+        broadcast over every text."""
+        if voice_clone_prompt is None:
+            if ref_audio is None:
+                raise ValueError("provide voice_clone_prompt, or ref_audio (+ref_text)")
+            voice_clone_prompt = self.create_voice_clone_prompt(
+                ref_audio, ref_text=ref_text, x_vector_only_mode=x_vector_only_mode)
+        else:
+            voice_clone_prompt = voice_prompt.normalize_voice_clone_prompt(
+                voice_clone_prompt)
+        texts = _as_list(text)
+        languages = _broadcast(_as_list(language), len(texts))
+        n = len(texts)
+        n_items = max((len(v) for v in voice_clone_prompt.values() if v), default=0)
+        if n_items == 1 and n > 1:
+            voice_clone_prompt = {k: (list(v) * n if v else v)
+                                  for k, v in voice_clone_prompt.items()}
+        elif n_items not in (0, n):
+            raise ValueError(
+                f"voice_clone_prompt has {n_items} item(s) for {n} text(s) — "
+                "pass one prompt item (broadcast) or exactly one per text")
+
+        speaker_embeds, ref_ids, ref_codes = [], [], []
+        for i in range(n):
+            se, ri, rc = self.clone_prompt_inputs(voice_clone_prompt, i)
+            speaker_embeds.append(se)
+            ref_ids.append(ri)
+            ref_codes.append(rc)
+        any_icl = any(c is not None for c in ref_codes)
+        return dict(texts=texts, speakers=[None] * n, languages=languages,
+                    speaker_embeds=speaker_embeds, ref_ids=ref_ids if any_icl else None,
+                    ref_codes=ref_codes if any_icl else None, non_streaming=non_streaming_mode)
+
+    def generate_voice_clone(
+        self,
+        text: MaybeList,
+        voice_clone_prompt: Optional[Any] = None,
+        language: MaybeList = "auto",
+        non_streaming_mode: bool = False,
+        *,
+        ref_audio=None,
+        ref_text: Optional[MaybeList] = None,
+        x_vector_only_mode: bool = False,
+        **kwargs,
+    ) -> Tuple[List[np.ndarray], int]:
+        """Speak ``text`` in a cloned voice. ``voice_clone_prompt`` is the
+        dict from ``create_voice_clone_prompt`` or ``load_voice_clone_prompt``,
+        one prompt item (a dict or an object with the item's fields), or a
+        list of items; or pass ``ref_audio`` (+ ``ref_text`` /
+        ``x_vector_only_mode``) and the prompt is built here. One item
+        broadcasts over every text; otherwise there must be one per text."""
+        return self._generate(**self._clone_request(
+            text, voice_clone_prompt, language, non_streaming_mode, ref_audio=ref_audio,
+            ref_text=ref_text, x_vector_only_mode=x_vector_only_mode), **kwargs)
+
+    def extract_speaker_embedding(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """A mono waveform at the speaker encoder's rate (24 kHz) → its
+        x-vector [enc_dim], float32."""
+        if self.speaker_params is None:
+            raise RuntimeError("this checkpoint has no speaker encoder (not a Base model)")
+        spk_cfg = self.cfg.speaker_encoder
+        if sr != spk_cfg.sample_rate:
+            raise ValueError(f"Only {spk_cfg.sample_rate} Hz audio supported")
+        with torch.inference_mode():
+            wav = torch.as_tensor(np.asarray(audio, np.float32)[None], device=self.device)
+            mels = mel_spectrogram(wav, n_fft=1024, num_mels=spk_cfg.mel_dim,
+                                   sampling_rate=sr, hop_size=256, win_size=1024, fmin=0,
+                                   fmax=12000)
+            xvec = speaker_encoder_forward(self.speaker_params, spk_cfg, mels)
+        return xvec[0].cpu().numpy()
+
+    def create_voice_clone_prompt(
+        self,
+        ref_audio,
+        ref_text: Optional[MaybeList] = None,
+        *,
+        sample_rate: int = 24000,
+        x_vector_only_mode: bool = False,
+        icl_mode: bool = True,
+    ) -> Dict[str, Any]:
+        """A voice-clone prompt dict from reference audio: its codes from the
+        12 Hz encoder (ICL mode) and its x-vector. ``ref_audio``: a WAV
+        path, http(s) URL or base64 string, an ``(np.ndarray, sr)`` tuple, a
+        bare ndarray at ``sample_rate``, or a list of those. Audio at another
+        rate is resampled to 24 kHz first (``audio.resample``)."""
+        raw = ref_audio if isinstance(ref_audio, list) else [ref_audio]
+        if sample_rate is not None:
+            raw = [(np.asarray(a, np.float32), sample_rate) if isinstance(a, np.ndarray)
+                   else a for a in raw]
+        audios = [resample(w, sr, 24000) for w, sr in normalize_audio_inputs(raw)]
+        n = len(audios)
+        ref_texts = _broadcast(_as_list(ref_text), n) if ref_text else [None] * n
+        use_icl = icl_mode and not x_vector_only_mode
+        ref_codes = self.speech_encoder.encode(audios, 24000) if use_icl else [None] * n
+        spk = ([self.extract_speaker_embedding(a, 24000) for a in audios]
+               if self.speaker_params is not None else [None] * n)
+        return {
+            "ref_code": ref_codes,
+            "ref_spk_embedding": spk,
+            "ref_text": ref_texts,
+            "icl_mode": [use_icl] * n,
+            "x_vector_only_mode": [not use_icl] * n,
+        }
+
+    @staticmethod
+    def save_voice_clone_prompt(prompt: Dict[str, Any], path: str) -> str:
+        """Write a voice-clone prompt as a reusable voice file: ``.npz``, or
+        else the reference demo's torch payload (``.pt``)."""
+        return voice_prompt.save_voice_clone_prompt(prompt, path)
+
+    @staticmethod
+    def load_voice_clone_prompt(path: str) -> Dict[str, Any]:
+        """Read a voice file written by ``save_voice_clone_prompt``, by the
+        JAX package or by the reference demo."""
+        return voice_prompt.load_voice_clone_prompt(path)
 
     def stream_custom_voice(
         self,

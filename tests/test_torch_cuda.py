@@ -68,8 +68,11 @@ def device():
 # (heads, kv, hd, s_max): the path's talker and sub-talker caches, other
 # group counts, and long talker caches (S_max 2080 = a 32-slot prefill bucket
 # + 2048 new tokens) split over up to 16 blocks per (row, KV head).
+# (16, 2, 64, 161): the talker cache of chip_smoke's clone batch (prompt
+# bucket 96 + 65 frames, split 4).
 ATTENTION_SHAPES = [(16, 2, 64, 97), (16, 8, 128, 16), (8, 8, 64, 40), (16, 1, 128, 33),
-                    (16, 2, 64, 2080), (16, 8, 128, 2080), (16, 1, 128, 1000)]
+                    (16, 2, 64, 161), (16, 2, 64, 2080), (16, 8, 128, 2080),
+                    (16, 1, 128, 1000)]
 
 
 def _rows(s_max, device):
@@ -731,3 +734,85 @@ def test_replayed_frames_equal_the_eager_frames(device, tmp_path, batch):
         torch.testing.assert_close(getattr(replayed, f), getattr(eager, f), rtol=0, atol=0)
     torch.testing.assert_close(replayed.k_cache, eager.k_cache, rtol=0, atol=0)
     graphs.clear()
+
+
+# Voice clone on the card: the tiny config's Base variant (chip_smoke's
+# writers: random ECAPA-TDNN and Mimi weights by name), f32.
+TINY_MIMI = dict(num_filters=8, hidden_size=32, upsampling_ratios=(4, 3, 2), codebook_size=128,
+                 codebook_dim=16, num_quantizers=8, num_hidden_layers=1, num_attention_heads=4,
+                 num_key_value_heads=4, head_dim=8, intermediate_size=64, sliding_window=16,
+                 vector_quantization_hidden_dimension=16)
+
+
+class _TinyTokenizer:
+    """Chat-template text → ids inside the tiny 512-row text vocab."""
+
+    def __call__(self, text):
+        ids = [1, 2, 3] + [10 + (ord(c) % 40) for c in text[:6]] + [4, 5]
+        if text.endswith("assistant\n") and text.count("<|im_start|>") > 1:
+            ids += [1, 2, 3]
+        return {"input_ids": ids}
+
+
+def _tiny_clone_models(device, tmp_path):
+    """(card model, CPU model) of the tiny Base checkpoint, f32."""
+    import dataclasses
+
+    from qwen_tts_tpu_torch.config import MimiEncoderConfig, tiny_tts_config
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    cfg = tiny_tts_config()
+    tk = dataclasses.replace(
+        cfg.talker, head_dim=64, mrope_section=(16, 8, 8),
+        code_predictor=dataclasses.replace(cfg.talker.code_predictor, head_dim=64))
+    cfg = dataclasses.replace(cfg, talker=tk)
+    chip_smoke.write_checkpoint(str(tmp_path), cfg, seed=0, device=device.type)
+    base = str(tmp_path / "base")
+    chip_smoke.write_base_checkpoint(str(tmp_path), base, cfg, MimiEncoderConfig(**TINY_MIMI),
+                                     seed=1, device=device.type)
+    models = []
+    for dev in (device, "cpu"):
+        m = Qwen3TTSModel.from_pretrained(base, talker_dtype=torch.float32, device=dev,
+                                          load_tokenizer=False)
+        m.tokenizer = _TinyTokenizer()
+        models.append(m)
+    return models
+
+
+def _clone_clips():
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    return [((0.2 * np.sin(np.linspace(0, n / 20, n)) + 0.05 * rng.standard_normal(n))
+             .astype(np.float32), 24000) for n in (960, 2000, 3100)]
+
+
+def test_clone_encoders_on_the_card_match_the_cpu(device, tmp_path):
+    """x-vectors and Mimi codes of the same clips, card against CPU, within
+    chip_smoke's tolerances (near-ties only)."""
+    card, cpu = _tiny_clone_models(device, tmp_path)
+    chip_smoke.check_clone_encoders(card, cpu, _clone_clips())
+
+
+def test_clone_codes_on_the_card_equal_the_cpu_codes(device, tmp_path):
+    """The card's ICL prompt as a voice file, loaded, and greedy
+    generate_voice_clone codes on both devices: equal."""
+    import numpy as np
+
+    card, cpu = _tiny_clone_models(device, tmp_path)
+    path = str(tmp_path / "voice.pt")
+    card.save_voice_clone_prompt(
+        card.create_voice_clone_prompt(_clone_clips()[:2], ref_text=["one", "two"]), path)
+    prompt = card.load_voice_clone_prompt(path)
+    kw = dict(do_sample=False, subtalker_dosample=False, repetition_penalty=1.0,
+              max_new_tokens=6, min_new_tokens=7)
+    texts, langs = ["hello there", "hi"], ["english", "auto"]
+    before = decode_attention.launches
+    codes = [np.stack(m.generate_codes_from_prompts(
+        chip_smoke.clone_prompts(m, prompt, texts, langs), m._merge_params(**kw))[0])
+        for m in (card, cpu)]
+    assert decode_attention.launches > before  # the card's decode ran the kernel
+    np.testing.assert_array_equal(codes[0], codes[1])
+    wavs, _ = card.generate_voice_clone(texts, prompt, langs, **kw)
+    up = card.cfg.codec.decode_upsample_rate
+    assert [w.shape for w in wavs] == [(5 * up,)] * 2

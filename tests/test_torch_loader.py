@@ -57,7 +57,7 @@ def _assert_trees_equal(torch_tree, jax_tree):
 def test_loader_matches_jax_leaf_by_leaf(ckpt, dtypes):
     t_dtype, j_dtype = dtypes
     _, jt, js, jc, _ = j_load(ckpt, talker_dtype=j_dtype)
-    cfg, tt, ts, tc = t_load(ckpt, talker_dtype=t_dtype, device="cpu")
+    cfg, tt, ts, tc, _ = t_load(ckpt, talker_dtype=t_dtype, device="cpu")
     assert cfg.talker.num_code_groups == 8
     for torch_tree, jax_tree in ((tt, jt), (ts, js), (tc, jc)):
         _assert_trees_equal(torch_tree, jax_tree)
@@ -68,7 +68,7 @@ def test_convert_agrees_with_loader(ckpt):
     _, jt, js, jc, _ = j_load(ckpt, talker_dtype=jnp.bfloat16)
     ct, cs, cc = convert_params(
         *(_unflatten(tree) for tree in (jt, js, jc)), device="cpu")
-    _, tt, ts, tc = t_load(ckpt, device="cpu")
+    _, tt, ts, tc, _ = t_load(ckpt, device="cpu")
     for converted, loaded in ((ct, tt), (cs, ts), (cc, tc)):
         _assert_trees_equal(converted, loaded)
 

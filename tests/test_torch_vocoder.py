@@ -142,7 +142,7 @@ def codecs(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("torch_vocoder_ckpt"))
     make_checkpoint(d)
     cfg, _, _, jc, _ = j_load(d, talker_dtype=jnp.float32, codec_dtype=jnp.bfloat16)
-    _, _, _, tc = t_load(d, talker_dtype=torch.float32, codec_dtype=torch.bfloat16,
+    _, _, _, tc, _ = t_load(d, talker_dtype=torch.float32, codec_dtype=torch.bfloat16,
                          device="cpu")
     return d, cfg.codec.decoder, jc, tc
 

@@ -1,11 +1,13 @@
 """Helpers shared by the PyTorch port's tests (tests/test_torch_*.py)."""
 
+import fcntl
 import math
 import os
 import re
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -33,6 +35,79 @@ def tame_codec(tree):
     if isinstance(tree, list):
         return [tame_codec(v) for v in tree]
     return tree
+
+
+def make_clone_checkpoint(model_dir: str) -> None:
+    """``make_checkpoint(with_encoders=True)`` with random Mimi codebooks.
+    The fixture's Mimi weights come from a fresh ``transformers.MimiModel``,
+    whose codebooks are all zero (``embed_sum`` 0, ``cluster_usage`` 1): every
+    frame would encode to code 0 and a comparison of codes would say nothing.
+    Here each ``embed_sum`` is N(0, 1) x its usage, each usage in [0.5, 1.5),
+    from a numpy seed; both packages then load the same file. The Mimi
+    model's own random init runs under a fixed torch seed, so the file is
+    the same on every run."""
+    from safetensors.numpy import load_file, save_file
+
+    from ckpt_fixture import make_checkpoint
+
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        make_checkpoint(model_dir, with_encoders=True)
+    path = os.path.join(model_dir, "speech_tokenizer", "model.safetensors")
+    tensors = load_file(path)
+    rng = np.random.default_rng(7)
+    for name in sorted(tensors):
+        if name.endswith(".codebook.cluster_usage"):
+            usage = rng.uniform(0.5, 1.5, tensors[name].shape).astype(np.float32)
+            esum = name[: -len("cluster_usage")] + "embed_sum"
+            tensors[name] = usage
+            tensors[esum] = (rng.standard_normal(tensors[esum].shape)
+                             * usage[:, None]).astype(np.float32)
+    save_file(tensors, path)
+
+
+def clone_checkpoint(tmp_path_factory) -> str:
+    """One ``make_clone_checkpoint`` directory for the whole test session,
+    built by the first test file that asks and shared by the rest (and by
+    every pytest-xdist worker: their base temp directories share a parent).
+    Readers must not write into it."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        root = root.parent
+    d, done = root / "torch_clone_ckpt", root / "torch_clone_ckpt.done"
+    with open(root / "torch_clone_ckpt.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            shutil.rmtree(d, ignore_errors=True)
+            make_clone_checkpoint(str(d))
+            done.touch()
+    return str(d)
+
+
+def numpy_tree(tree):
+    """A JAX parameter tree with numpy leaves, as a caller hands it to convert."""
+    if isinstance(tree, dict):
+        return {k: numpy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [numpy_tree(v) for v in tree]
+    return None if tree is None else np.asarray(tree)
+
+
+def assert_same_tree(a, b, path="root"):
+    """Two port trees of float32 tensors: same keys, shapes and bits."""
+    if isinstance(a, dict):
+        assert set(a) == set(b), path
+        for k in a:
+            assert_same_tree(a[k], b[k], f"{path}.{k}")
+    elif isinstance(a, list):
+        assert len(a) == len(b), path
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same_tree(x, y, f"{path}[{i}]")
+    elif a is None:
+        assert b is None, path
+    else:
+        assert a.dtype == b.dtype == torch.float32 and a.shape == b.shape, path
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=path)
 
 
 # --------------------------------------------------------------------------
