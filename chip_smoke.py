@@ -39,7 +39,7 @@ Phases, each of which exits non-zero on failure:
    frame (a warm-up call at the same shapes captures it); the
    decode-attention launch count, captured launches x replays, must be
    exactly frames x (talker layers + groups x sub-talker layers); then the
-   decode loop and the whole call timed through the graphs and eagerly, five
+   decode loop and the whole call timed through the graphs and eagerly, three
    runs each in turns (ms/step, RTF, peak memory), and torch.profiler over a
    16-frame decode segment each way (device idle share, host launch calls
    per frame);
@@ -70,7 +70,7 @@ Phases, each of which exits non-zero on failure:
    must hold frames x 1920 samples, the kernels must launch exactly as the
    chunk schedule predicts (with the frames replayed past the last row's end
    before the next flag read), and the streamed codes must equal
-   ``generate_codes`` at the stream's prompt bucket (16); five streams each
+   ``generate_codes`` at the stream's prompt bucket (16); three streams each
    through the graphs and eagerly, in turns, and the eager first packet
    stage by stage (CUDA events);
 10. graphs: the replayed decode against the eager frame loop, each through
@@ -105,10 +105,34 @@ Phases, each of which exits non-zero on failure:
    codes of the four clips agree at >= ``CLONE_CODE_AGREEMENT`` with
    near-ties only, the x-vectors within ``CLONE_XVEC_REL_L2``, and greedy
    clone codes from the card's prompt saved as a ``.pt`` voice file and
-   loaded are equal.
+   loaded are equal;
+12. serving: the engines on the same checkpoint in the serving mode (int8
+   weights and KV cache), f32 codec, EOS banned, greedy unless stated. The
+   continuous engine (8 slots, 25-frame segments, ceiling 96, prefill
+   bucket 32) takes 16 requests (the texts in 4 voices, budgets 32 / 48 /
+   64 / 96, four each) from 4 client threads at once: a first run (its
+   captures), then 3 runs each with double-buffered and synchronous
+   dispatch in turns (wall, audio over wall, per-request latency, segments,
+   stale skips, the engine's phase times, kernel launches); no capture
+   after the first run, every run the first run's codes, no whole int8
+   cast, each request's codes equal to the same request alone through
+   ``generate_codes_from_prompts`` at the engine's ceiling (or first apart
+   at a near tie, ``SERVING_NEAR_TIE``), and both decode-attention kernels
+   held against their plain versions at the pool's real per-row depths.
+   Four greedy and four sampled requests (per-row temperature, top-k,
+   top-p, repetition penalty, sub-talker sampling) in one pool: the greedy
+   rows' codes equal the all-greedy pool's, all codes in range. The window
+   engine: two windows of 8 requests of 4 budgets on one frame program,
+   codes equal alone. The frame programs' replays timed (events; the sorts'
+   device share from a profile). HTTP over the continuous engine:
+   /healthz, /tts (a 24 kHz WAV of its length), /stream (de-chunked PCM16 of
+   its length, the first chunk's latency over 3 streams); on the Base
+   checkpoint (prefill buckets 32 and 96) a /clone_voice from inline PCM,
+   taken while another request decodes, and a /tts in that voice.
 
-The line before the last holds the kernels' JSON records; the last line is
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``qwen_tts_tpu``.
+Each phase logs its seconds (``time: ...``). The line before the last holds
+the kernels' JSON records; the last line is ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX or ``qwen_tts_tpu``.
 """
 
 from __future__ import annotations
@@ -2098,7 +2122,7 @@ def _spread(values, fmt="{:.2f}") -> str:
             f"{fmt.format(max(values))})")
 
 
-def graph_vs_eager(fn, runs: int = 5):
+def graph_vs_eager(fn, runs: int = 3):
     """``fn`` timed ``runs`` times through the graphs and ``runs`` times
     eagerly, in turns (graph, eager, eager, graph, ...): per side the host
     wall seconds (each run ends in a synchronise), the peak device memory
@@ -3378,18 +3402,575 @@ def phase_clone(base_dir: str, smi: str) -> dict:
     return {"launches": launches, "serving": serving, "attention_err": errs}
 
 
+# --------------------------------------------------------------------------
+# Phase 12: the serving engines and the HTTP server
+# --------------------------------------------------------------------------
+
+# The continuous engine's load: 8 slots, 25-frame segments, a ceiling of 96
+# frames, one prefill bucket of 32. 16 requests, the smoke texts in 4 voices
+# (the flagship config's two speakers, each in two languages), budgets
+# (max_new_tokens) of 32/48/64/96 frames four each, EOS banned, greedy.
+SERVING_SLOTS, SERVING_SEGMENT, SERVING_CEILING, SERVING_BUCKET = 8, 25, 96, 32
+SERVING_BUDGETS = (32, 48, 64, 96)
+SERVING_VOICES = (("aiden", "english"), ("serena", "english"), ("aiden", "chinese"),
+                  ("serena", "auto"))
+SERVING_GREEDY = dict(do_sample=False, subtalker_dosample=False, repetition_penalty=1.0,
+                      min_new_tokens=SERVING_CEILING + 1)
+# A request's codes from a pool against the same request alone may differ
+# only where the alone run's top two logits (eager, recorded) lie within
+# this share of that call's largest |logit|: the bf16 plain ops around the
+# kernels (cuBLAS products, norms) are not shown batch-invariant, and one
+# bf16 ulp of a hidden state (2^-8 relative) moves a logit by about that
+# much of its scale.
+SERVING_NEAR_TIE = 2 ** -6
+# Per-row controls: four sampled requests beside four greedy ones.
+SERVING_SAMPLED = (
+    dict(do_sample=True, temperature=0.7, top_k=20, top_p=1.0, repetition_penalty=1.05),
+    dict(do_sample=True, temperature=1.1, top_k=0, top_p=0.8, repetition_penalty=1.2),
+    dict(do_sample=True, temperature=0.9, top_k=50, top_p=0.9, repetition_penalty=1.0,
+         subtalker_dosample=True, subtalker_temperature=0.8, subtalker_top_k=30),
+    dict(do_sample=False, repetition_penalty=1.0, subtalker_dosample=True,
+         subtalker_temperature=1.2, subtalker_top_k=0, subtalker_top_p=0.7),
+)
+
+
+def serving_requests():
+    """(text, speaker, language, budget) of the load's 16 requests."""
+    return [(text, spk, lang, SERVING_BUDGETS[(i + j) % len(SERVING_BUDGETS)])
+            for i, text in enumerate(TEXTS) for j, (spk, lang) in enumerate(SERVING_VOICES)]
+
+
+@contextlib.contextmanager
+def counting_captures():
+    """Counts the CUDA graph captures made inside (a list of one count)."""
+    from qwen_tts_tpu_torch import graphs
+
+    count, orig = [0], graphs.Graph._capture
+
+    def counting(self, fn, generator):
+        count[0] += 1
+        return orig(self, fn, generator)
+
+    graphs.Graph._capture = counting
+    try:
+        yield count
+    finally:
+        graphs.Graph._capture = orig
+
+
+def run_continuous_load(model, requests, sync: bool, kws=None, seconds: float = 300.0):
+    """The requests through a new ContinuousBatchingEngine, submitted at once
+    from 4 client threads (request k by thread k % 4). Returns each
+    request's waveform, its codes as the engine finished it, its latency
+    from submit to result, the wall seconds, the engine's stats, the kernel
+    launches of the run and each row's last (cur_len, valid_from) in the
+    pool."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.continuous import ContinuousBatchingEngine
+
+    engine = ContinuousBatchingEngine(
+        model, num_slots=SERVING_SLOTS, segment_frames=SERVING_SEGMENT,
+        max_new_tokens=SERVING_CEILING, prefill_bucket=SERVING_BUCKET, sync_dispatch=sync)
+    n = len(requests)
+    wavs, codes, submitted, done_at, errors, index = [None] * n, {}, [0.0] * n, [0.0] * n, [], {}
+    finish = engine._finish_one
+
+    def recording(req, req_codes):
+        codes[index[id(req.future)]] = np.concatenate(req_codes)
+        finish(req, req_codes)
+
+    engine._finish_one = recording
+
+    def client(k):
+        try:
+            futs = []
+            for i in range(k, n, 4):
+                text, spk, lang, budget = requests[i]
+                kw = dict(SERVING_GREEDY, **(kws[i] if kws else {}))
+                submitted[i] = time.perf_counter()
+                fut = engine.submit_text(text, speaker=spk, language=lang,
+                                         max_new_tokens=budget, **kw)
+                index[id(fut)] = i
+                fut.add_done_callback(lambda f, i=i: done_at.__setitem__(i, time.perf_counter()))
+                futs.append((i, fut))
+            for i, fut in futs:
+                wavs[i] = fut.result(timeout=seconds)
+        except Exception as e:  # reported below: the phase fails
+            errors.append(e)
+
+    counters = _counters()
+    engine.start()
+    try:
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=seconds)
+        wall = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in counters.items()}
+        depths = ((engine._state.prefix_len + engine._state.num_gen + 1).tolist(),
+                  engine._state.valid_from.tolist())
+    finally:
+        engine.stop()
+    if errors or any(t.is_alive() for t in threads) or any(w is None for w in wavs):
+        fail(f"serving: the continuous load did not finish: {errors[:3]}")
+    latency = [d - s for s, d in zip(submitted, done_at)]
+    return dict(wavs=wavs, codes=codes, latency=latency, wall=wall, stats=dict(engine.stats),
+                launches=launches, depths=depths)
+
+
+def solo_codes(model, request):
+    """One request alone through ``generate_codes_from_prompts`` at the
+    engines' ceiling and prefill bucket (its budget as ``step_limit``)."""
+    text, spk, lang, budget = request
+    prompt = card_prompt_in(model, text, spk, lang)
+    params = model._merge_params(max_new_tokens=SERVING_CEILING, **SERVING_GREEDY)
+    codes, _ = model.generate_codes_from_prompts([prompt], params, step_limit=[budget],
+                                                 max_new_ceiling=SERVING_CEILING)
+    return codes[0].astype("int64")
+
+
+def card_prompt_in(model, text, speaker, language):
+    from qwen_tts_tpu_torch.generate import build_prompt
+
+    return build_prompt(model.talker_params, model.cfg,
+                        model._tokenize(model.build_assistant_text(text)), language=language,
+                        speaker=speaker)
+
+
+def solo_margin(model, request, frame: int, group: int):
+    """The alone run's top-two logit margin at (frame, group), and that
+    call's largest |logit|, from an eager run that records every sampling
+    call (call f x G + g chose code (f, g): the prefill's token, then per
+    frame the sub-talker's G - 1 codes and the talker's next token)."""
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch.models import subtalker as st_mod
+
+    calls = []
+    originals = (gen_mod.sample_token, st_mod.sample_token)
+
+    def recording(logits, cfg, generator, _orig=originals[0]):
+        calls.append(logits[0].float().cpu())
+        return _orig(logits, cfg, generator)
+
+    gen_mod.sample_token = st_mod.sample_token = recording
+    try:
+        with eager_decode():
+            solo_codes(model, request)
+    finally:
+        gen_mod.sample_token, st_mod.sample_token = originals
+    lg = calls[frame * model.cfg.talker.num_code_groups + group]
+    top2 = torch.topk(lg, 2).values
+    return (top2[0] - top2[1]).item(), lg[lg > -1e8].abs().max().item()
+
+
+def hold_against_solo(model, what: str, got: dict, requests, solos: dict) -> int:
+    """Each request's codes ``got[i]`` against its codes alone (``solos``,
+    keyed by request, filled on first use): equal, or first apart at a near
+    tie (``SERVING_NEAR_TIE``). Returns the rows equal."""
+    import numpy as np
+
+    equal, ties = 0, []
+    for i, request in enumerate(requests):
+        if request not in solos:
+            solos[request] = solo_codes(model, request)
+        a, b = got[i], solos[request]
+        if a.shape != b.shape:
+            fail(f"{what}: request {i} gave {a.shape} codes, alone {b.shape}")
+        if np.array_equal(a, b):
+            equal += 1
+            continue
+        f, g = (int(v) for v in np.argwhere(a != b)[0])
+        margin, scale = solo_margin(model, request, f, g)
+        ties.append((i, f, g, round(margin, 5), round(scale, 3)))
+        if not margin <= SERVING_NEAR_TIE * scale:
+            fail(f"{what}: request {i} first differs from its codes alone at frame {f}, group "
+                 f"{g}, where the alone run's top-two margin {margin:.4g} is not a near tie "
+                 f"(limit {SERVING_NEAR_TIE} x {scale:.4g})")
+    rest = (f"; the rest first apart at near ties (request, frame, group, margin, "
+            f"max|logit|) {ties}" if ties else "")
+    log(f"{what}: codes equal to each request alone for {equal} / {len(requests)} requests"
+        f"{rest}")
+    return equal
+
+
+def _post_json(port: int, path: str, obj, timeout: float = 300.0):
+    """POST ``obj``: (status, content type, body); an error status fails
+    the phase with the server's message."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(obj).encode(),
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.headers.get("Content-Type"), r.read()
+    except urllib.error.HTTPError as e:
+        fail(f"serving HTTP {path}: {e.code} {e.read()[:500]!r}")
+
+
+def _wav_samples(body: bytes, up: int, frames: int, what: str):
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(body)) as w:
+        rate, n = w.getframerate(), w.getnframes()
+        pcm = np.frombuffer(w.readframes(n), dtype="<i2")
+    if rate != 24000 or n != frames * up or not pcm.any():
+        fail(f"serving HTTP {what}: a {rate} Hz WAV of {n} samples, want {frames * up} at 24000")
+    return pcm
+
+
+@contextlib.contextmanager
+def http_server(engine, model):
+    """``make_handler`` over ``engine`` (started here) on 127.0.0.1 at a free
+    port; stops both."""
+    from http.server import ThreadingHTTPServer
+
+    from qwen_tts_tpu_torch.server import make_handler
+
+    engine.start()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), make_handler(engine, model))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield httpd.server_address[1]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.stop()
+        thread.join(timeout=60)
+
+
+def stream_once(port: int, body: dict):
+    """POST /stream; the seconds to the first PCM bytes and the whole PCM."""
+    import http.client
+
+    import numpy as np
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/stream", body=json.dumps(body),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or resp.headers.get("Transfer-Encoding") != "chunked":
+            fail(f"serving HTTP /stream: status {resp.status}")
+        first = resp.read(2)
+        t_first = time.perf_counter() - t0
+        pcm = np.frombuffer(first + resp.read(), dtype="<i2")
+    finally:
+        conn.close()
+    return t_first, pcm
+
+
+def phase_serving_http(model, base_dir: str, smi: str) -> None:
+    """/healthz, /tts, /stream (first chunk, median of 3) over a continuous
+    engine on the serving model; then, on the Base checkpoint, a
+    /clone_voice (inline PCM of a phase-11 clip) taken while another request
+    decodes, and a /tts in that voice."""
+    import urllib.request
+
+    import numpy as np
+
+    from qwen_tts_tpu_torch.continuous import ContinuousBatchingEngine
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    up = model.cfg.codec.decode_upsample_rate
+    tts = dict(SERVING_GREEDY, text=TEXTS[1], speaker="aiden", language="english")
+    short, stream = SERVING_BUDGETS[:2]  # the /tts and /stream budgets
+    engine = ContinuousBatchingEngine(model, num_slots=SERVING_SLOTS,
+                                      segment_frames=SERVING_SEGMENT,
+                                      max_new_tokens=SERVING_CEILING, prefill_bucket=SERVING_BUCKET)
+    with http_server(engine, model) as port:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=60) as r:
+            health = json.load(r)
+        status, ctype, body = _post_json(port, "/tts", dict(tts, max_new_tokens=short))
+        if health.get("status") != "ok" or status != 200 or ctype != "audio/wav":
+            fail(f"serving HTTP: /healthz {health}, /tts {status} {ctype}")
+        _wav_samples(body, up, short - 1, "/tts")
+        firsts = []
+        for _ in range(3):
+            t_first, pcm = stream_once(port, dict(tts, text=TEXTS[0], max_new_tokens=stream))
+            firsts.append(t_first * 1e3)
+            if pcm.shape != ((stream - 1) * up,) or not pcm.any():
+                fail(f"serving HTTP /stream: {pcm.shape} PCM samples, want {(stream - 1) * up}")
+    log(f"serving HTTP (continuous engine, int8 weights + KV): /healthz ok; /tts a 24 kHz WAV "
+        f"of {short - 1} frames; /stream {(stream - 1) * up} PCM16 samples de-chunked, first "
+        f"chunk after "
+        f"{_spread(firsts)} ms (3 streams, {SERVING_SEGMENT}-frame segments) | {smi}")
+
+    base = Qwen3TTSModel.from_pretrained(base_dir)
+    base.tokenizer = ChatTemplateTokenizer()
+    engine = ContinuousBatchingEngine(base, num_slots=SERVING_SLOTS,
+                                      segment_frames=SERVING_SEGMENT,
+                                      max_new_tokens=SERVING_CEILING, prefill_bucket=(32, 96))
+    clip, rate = clone_clips()[0]
+    long_done, long_body = threading.Event(), []
+    with counting_captures() as captures, http_server(engine, base) as port:
+        def long_request():
+            long_body.append(_post_json(port, "/tts", dict(tts, text=TEXTS[3],
+                                                           max_new_tokens=SERVING_CEILING)))
+            long_done.set()
+
+        thread = threading.Thread(target=long_request)
+        thread.start()
+        deadline = time.monotonic() + 120
+        while engine.stats["segments"] < 1:
+            if time.monotonic() > deadline:
+                fail("serving HTTP: the long request never reached a segment")
+            time.sleep(0.002)
+        t0 = time.perf_counter()
+        status, _, body = _post_json(port, "/clone_voice", {
+            "audio": {"pcm": clip.tolist(), "sample_rate": rate},
+            "ref_text": CLONE_REF_TEXTS[0]})
+        clone_s = time.perf_counter() - t0
+        during = not long_done.is_set()
+        voice = json.loads(body)
+        status2, _, body2 = _post_json(port, "/tts", dict(tts, voice=voice["voice"],
+                                                          max_new_tokens=short))
+        thread.join(timeout=300)
+        if status != 200 or status2 != 200 or not voice.get("icl") or not long_body:
+            fail(f"serving HTTP clone: /clone_voice {status} {voice}, /tts {status2}")
+        _wav_samples(body2, up, short - 1, "/tts in the cloned voice")
+        _wav_samples(long_body[0][2], up, SERVING_CEILING - 1, "/tts beside the clone")
+    log(f"serving HTTP clone (Base checkpoint, bf16, prefill buckets 32 and 96): /clone_voice "
+        f"of a {len(clip) / rate:.1f} s clip (inline PCM) in {clone_s * 1e3:.1f} ms while "
+        f"another request decoded: {during}; /tts in the cloned voice a WAV of {short - 1} "
+        f"frames; the "
+        f"other request's WAV of {SERVING_CEILING - 1} frames; captures {captures[0]}, "
+        f"segments {engine.stats['segments']}, bucket admissions "
+        f"{engine.stats['bucket_admits']} | {smi}")
+    if not during:
+        fail("serving HTTP clone: the other request finished before the clone was taken")
+    del base
+
+
+
+def time_frame_programs(smi: str, replays: int = 25, runs: int = 5) -> None:
+    """Each live frame program replayed on its own buffers: ``runs`` x
+    ``replays`` replays timed with CUDA events (ms a frame, median), then
+    one profiled run: device busy a frame and the share of the sorts (the
+    per-row sampling's top-k and top-p). A program's buffers hold a finished
+    load (every row done), and a frame in which no row is active runs the
+    same kernels and changes nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen_tts_tpu_torch import graphs
+
+    for kind, program in graphs.programs():
+        if kind != "frame":
+            continue
+        b = program.frame.shape[0]
+        label = "per-row sampling" if program.vec is not None else "static sampling"
+        ms = []
+        for _ in range(runs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(replays):
+                program.graph.replay()
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end) / replays)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(replays):
+                program.graph.replay()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in device) / 1e3 / replays
+        sort_ms = sum(e.self_device_time_total for e in device
+                      if "sort" in e.key.lower()) / 1e3 / replays
+        kernels = sum(e.count for e in device) / replays
+        log(f"serving frame program B={b}, S_max={program.state.k_cache['i8'].shape[2]}, "
+            f"{label}: replayed {_spread(ms, '{:.3f}')} ms/frame ({runs} x {replays} replays, "
+            f"events); one profiled run: device busy {busy:.3f} ms/frame in {kernels:.1f} device "
+            f"ops/frame, sorts {sort_ms:.3f} ms/frame | {smi}")
+
+
+def phase_serving(model_dir: str, base_dir: str, smi: str) -> dict:
+    """Phase 12: the serving engines on the flagship checkpoint in the
+    serving mode (int8 weights and KV cache), f32 codec, EOS banned, greedy
+    unless stated. Returns the continuous load's kernel launches."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+    from qwen_tts_tpu_torch.serving import ServingEngine
+
+    t_phase = time.perf_counter()
+    graphs.clear()
+    model = Qwen3TTSModel.from_pretrained(model_dir)
+    model.tokenizer = ChatTemplateTokenizer()
+    model.quantize_for_serving(talker=True, kv=True)
+    up, sr = model.cfg.codec.decode_upsample_rate, model.sample_rate
+    requests = serving_requests()
+    audio_s = sum((b - 1) * up for *_, b in requests) / sr
+
+    # The continuous engine's load: a first run (its captures), then three
+    # runs each way, double-buffered and synchronous dispatch in turns.
+    with counting_captures() as captures:
+        first = run_continuous_load(model, requests, sync=False)
+    first_captures = captures[0]
+    runs = {False: [], True: []}
+    with counting_captures() as captures:
+        for sync in (False, True, True, False, False, True):
+            runs[sync].append(run_continuous_load(model, requests, sync))
+    for i, w in enumerate(first["wavs"]):
+        if w.shape != ((requests[i][3] - 1) * up,) or not np.isfinite(w).all():
+            fail(f"serving: request {i} gave a waveform of {w.shape}")
+    for sync, rs in runs.items():
+        mode = "synchronous" if sync else "double-buffered"
+
+        def med(key, rs=rs):
+            return statistics.median(r["stats"][key] for r in rs)
+
+        log(f"serving continuous [{mode} dispatch] 16 requests, {SERVING_SLOTS} slots, "
+            f"{SERVING_SEGMENT}-frame segments, medians of 3: wall "
+            f"{_spread([r['wall'] for r in rs], '{:.3f}')} s; audio/wall "
+            f"{_spread([audio_s / r['wall'] for r in rs], '{:.3f}')}; latency median "
+            f"{_spread([statistics.median(r['latency']) for r in rs], '{:.3f}')} s, max "
+            f"{_spread([max(r['latency']) for r in rs], '{:.3f}')} s; segments {med('segments')}, "
+            f"stale_skips {med('stale_skips')}; time admit {med('time_admit_s'):.3f} s, segment "
+            f"{med('time_segment_s'):.3f} s, finish {med('time_finish_s'):.3f} s, emit "
+            f"{med('time_emit_s'):.3f} s; launches {rs[0]['launches']} | {smi}")
+    launches = first["launches"]
+    log(f"serving continuous: captures in the first run {first_captures}, in the 6 runs after "
+        f"it {captures[0]}; launches in the first run {launches}; audio {audio_s:.2f} s a run")
+    if captures[0]:
+        fail("serving: a steady load captured a program anew")
+    for name in ("decode_attention_int8", "subtalker_step", "int8_matmul"):
+        if not launches[name]:
+            fail(f"serving: {name} was not launched by the continuous load")
+    for r in runs[False] + runs[True]:
+        if any(not np.array_equal(r["codes"][i], first["codes"][i]) for i in first["codes"]):
+            fail("serving: a run of the load gave other codes than the first")
+    casts = count_int8_weight_casts(
+        model, [card_prompt_in(model, t, s, lang) for t, s, lang, _ in requests[:4]],
+        dict(SERVING_GREEDY, max_new_tokens=3, min_new_tokens=4))
+    log(f"serving: int8 weights cast whole in a 3-step decode: {casts}")
+    if casts:
+        fail("the serving engines' path casts int8 weights whole")
+    solos: dict = {}
+    hold_against_solo(model, "serving continuous", first["codes"], requests, solos)
+    cur_len, valid_from = first["depths"]
+    s_max = SERVING_BUCKET + SERVING_CEILING
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    attention_err = {name: hold_attention_at(gen, (*ATTN_TALKER, s_max), int8, "serving pool",
+                                             [(cur_len, valid_from)])
+                     for name, int8 in (("decode_attention", False),
+                                        ("decode_attention_int8", True))}
+
+    # Per-row controls: the load's first four requests greedy beside four
+    # sampled ones, in one pool.
+    mixed = requests[:4] + [(t, s, lang, SERVING_BUDGETS[2]) for t, s, lang, _ in requests[4:8]]
+    kws = [{}] * 4 + [dict(kw, seed=100 + i) for i, kw in enumerate(SERVING_SAMPLED)]
+    controls = run_continuous_load(model, mixed, sync=False, kws=kws)
+    hold_against_solo(model, "serving per-row controls (greedy rows against the all-greedy "
+                             "pool's codes)", {i: controls["codes"][i] for i in range(4)},
+                      requests[:4], {requests[i]: first["codes"][i] for i in range(4)})
+    tk = model.cfg.talker
+    first_vocab = tk.vocab_size - tk.suppress_tail  # EOS banned: below the suppressed band
+    vocab = tk.code_predictor.vocab_size
+    in_range = all(c.min() >= 0 and c[:, 0].max() < first_vocab and c[:, 1:].max() < vocab
+                   for c in controls["codes"].values())
+    sampled_apart = 0
+    for i in range(4, 8):  # against the same text and voice, greedy, in the load
+        n = min(len(controls["codes"][i]), len(first["codes"][i]))
+        sampled_apart += not np.array_equal(controls["codes"][i][:n], first["codes"][i][:n])
+    log(f"serving per-row controls: 4 greedy + 4 sampled rows (temperature / top_k / top_p / "
+        f"repetition_penalty / sub-talker sampling per row) in one pool; codes in range (group 0 "
+        f"under {first_vocab}, the others under {vocab}): "
+        f"{in_range}; sampled rows apart from greedy: {sampled_apart} / 4; wall "
+        f"{controls['wall']:.3f} s")
+    if not in_range:
+        fail("serving per-row controls: codes out of range")
+
+    # The window engine: 8 requests of 4 budgets in one window, then the
+    # same 8 texts and voices with the budgets rotated: one frame program
+    # for both (a window's program depends on its batch, its sampling config
+    # and its texts' trailing length, not on the budgets).
+    window = requests[:8] + [r[:3] + (requests[(i + 2) % 8][3],) for i, r in
+                             enumerate(requests[:8])]
+    window_codes = {}
+    with counting_captures() as captures:
+        for half in (0, 8):
+            engine = ServingEngine(model, max_batch=8, max_new_tokens=SERVING_CEILING)
+            decoded = []
+            orig = model.decode_codes
+
+            def recording(codes_list, **kw):
+                decoded.extend(np.asarray(c, np.int64) for c in codes_list)
+                return orig(codes_list, **kw)
+
+            model.decode_codes = recording
+            futs = [engine.submit_text(t, speaker=s, language=lang, max_new_tokens=b,
+                                       **SERVING_GREEDY)
+                    for t, s, lang, b in window[half:half + 8]]
+            t0 = time.perf_counter()
+            engine.start()
+            try:
+                wavs = [f.result(timeout=300) for f in futs]
+            finally:
+                engine.stop()
+                del model.decode_codes
+            window_wall = time.perf_counter() - t0
+            if engine.stats["batches"] != 1 or any(
+                    w.shape != ((b - 1) * up,) for w, (*_, b) in zip(wavs, window[half:half + 8])):
+                fail(f"serving window: {engine.stats}")
+            window_codes.update({half + i: c for i, c in enumerate(decoded)})
+            log(f"serving window engine: 8 requests (budgets "
+                f"{[b for *_, b in window[half:half + 8]]}) in one window of "
+                f"{window_wall:.3f} s, audio/wall "
+                f"{sum((b - 1) * up for *_, b in window[half:half + 8]) / sr / window_wall:.3f}"
+                f" | {smi}")
+    log(f"serving window engine: frame programs captured for the two windows: {captures[0]}")
+    if captures[0] != 1:
+        fail("serving window: the windows did not share one frame program")
+    hold_against_solo(model, "serving window", window_codes, window, solos)
+    time_frame_programs(smi)  # the continuous pool's program and the windows'
+
+    phase_serving_http(model, base_dir, smi)
+    del model
+    graphs.clear()
+    torch.cuda.empty_cache()
+    log(f"serving: phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "attention_err": attention_err}
+
+
+def timed(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, its seconds logged under ``name``."""
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    log(f"time: {name} {time.perf_counter() - t0:.1f} s")
+    return result
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     smi = phase_device()
     import torch
 
     from qwen_tts_tpu_torch import graphs
 
-    phase_build()
+    timed("build", phase_build)
     prefill_bucket = 32
-    records = phase_kernels(prefill_bucket + MAX_NEW)
-    records.append(phase_kernels_vocoder_block())
-    records.append(phase_kernels_int8_matmul())
-    phase_batch_invariance()
+    records = timed("kernels", phase_kernels, prefill_bucket + MAX_NEW)
+    records.append(timed("kernels vocoder_block", phase_kernels_vocoder_block))
+    records.append(timed("kernels int8_matmul", phase_kernels_int8_matmul))
+    timed("batch invariance", phase_batch_invariance)
     model_dir = tempfile.mkdtemp(prefix="qtts_smoke_")
     try:
         cfg = flagship_config()
@@ -3399,24 +3980,25 @@ def main() -> int:
                    for r, _, fs in os.walk(model_dir) for f in fs)
         log(f"checkpoint: random weights at flagship dims, {size / 2**30:.2f} GiB, "
             f"written in {time.perf_counter() - t0:.1f} s")
-        path = phase_path(model_dir, smi)
-        phase_parity(model_dir)
+        path = timed("path", phase_path, model_dir, smi)
+        timed("parity", phase_parity, model_dir)
         graphs.clear()
-        serving = phase_path(model_dir, smi, serving=True)
-        phase_parity(model_dir, "int8")
+        serving = timed("serving path", phase_path, model_dir, smi, serving=True)
+        timed("parity int8", phase_parity, model_dir, "int8")
         graphs.clear()
-        phase_parity(model_dir, "int8+kv")
+        timed("parity int8+kv", phase_parity, model_dir, "int8+kv")
         graphs.clear()
-        phase_codec_bf16(model_dir, smi, path)
-        stream = phase_stream(model_dir, smi)
-        phase_graphs(model_dir, smi)
+        timed("codec bf16", phase_codec_bf16, model_dir, smi, path)
+        stream = timed("stream", phase_stream, model_dir, smi)
+        timed("graphs", phase_graphs, model_dir, smi)
         base_dir = os.path.join(model_dir, "base")
         t0 = time.perf_counter()
         write_base_checkpoint(model_dir, base_dir, cfg, cfg.codec.encoder, seed=4321)
         log(f"checkpoint: Base variant (links to the talker and codec, plus the speaker "
             f"and Mimi encoders at the published widths) written in "
             f"{time.perf_counter() - t0:.1f} s")
-        clone = phase_clone(base_dir, smi)
+        clone = timed("clone", phase_clone, base_dir, smi)
+        serving_engines = timed("serving engines", phase_serving, model_dir, base_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.
@@ -3426,7 +4008,9 @@ def main() -> int:
     records[3]["launches"] = stream["vocoder_block"]
     records[4]["launches"] = serving["launches"]["int8_matmul"]
     for rec in records[:2]:
-        rec["max_abs_err"] = max(rec["max_abs_err"], clone["attention_err"][rec["name"]])
+        rec["max_abs_err"] = max(rec["max_abs_err"], clone["attention_err"][rec["name"]],
+                                 serving_engines["attention_err"][rec["name"]])
+    log(f"time: all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {

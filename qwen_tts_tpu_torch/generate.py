@@ -41,6 +41,11 @@ from qwen_tts_tpu_torch.ops.sampling import (
     build_suppress_mask,
     sample_token,
 )
+from qwen_tts_tpu_torch.ops.sampling_vec import (
+    VecSampling,
+    apply_repetition_penalty_vec,
+    sample_token_vec,
+)
 
 # The host reads whether any row is still active once every CHECK_EVERY
 # frames. Each read waits until the card has run every frame queued before
@@ -340,9 +345,12 @@ class DecodeState:
     generator: Optional[torch.Generator] = None  # sampling draws, carried across segments
 
 
-def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device):
+def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device,
+               vec_sampling: Optional[VecSampling] = None):
     """Logits pipeline: suppress → min-new-tokens EOS ban → repetition
-    penalty → sample."""
+    penalty → sample. With ``vec_sampling`` every control is per row (a slot
+    pool serves requests of different controls in one program) and
+    ``sampling`` is not read."""
     vocab = talker_cfg.vocab_size
     eos_id = talker_cfg.codec_eos_token_id
     suppress = build_suppress_mask(vocab, eos_id, tail=talker_cfg.suppress_tail,
@@ -351,6 +359,12 @@ def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device):
 
     def process_and_sample(logits, presence, num_sampled, generator):
         logits = apply_suppress_mask(logits, suppress[None])
+        if vec_sampling is not None:
+            ban = num_sampled < vec_sampling.min_new_tokens  # [B]
+            logits = logits.masked_fill(ban[:, None] & is_eos[None], NEG_INF)
+            logits = apply_repetition_penalty_vec(logits, presence,
+                                                  vec_sampling.repetition_penalty)
+            return sample_token_vec(logits, vec_sampling, generator)
         if sampling.min_new_tokens > 0:
             ban = num_sampled < sampling.min_new_tokens  # [B]
             logits = logits.masked_fill(ban[:, None] & is_eos[None], NEG_INF)
@@ -370,8 +384,10 @@ def _prefill(
     max_cache_len: int,
     generator: Optional[torch.Generator],
     kv_int8: bool = False,
+    vec_sampling: Optional[VecSampling] = None,
 ) -> DecodeState:
-    """Prefill + first-token sample: the decode state before the first frame."""
+    """Prefill + first-token sample: the decode state before the first frame.
+    With ``vec_sampling`` token 0 honours each row's own controls."""
     b, s, _ = inputs_embeds.shape
     device = inputs_embeds.device
     k_cache, v_cache = talker_mod.alloc_kv_cache(
@@ -381,7 +397,8 @@ def _prefill(
     n_real = pad_mask.int().sum(dim=-1, dtype=torch.int32)
     presence = torch.zeros((b, talker_cfg.vocab_size), dtype=torch.bool, device=device)
     zeros = torch.zeros(b, dtype=torch.int32, device=device)
-    token0 = _processor(talker_cfg, sampling, device)(pre.logits, presence, zeros, generator)
+    token0 = _processor(talker_cfg, sampling, device, vec_sampling)(
+        pre.logits, presence, zeros, generator)
     presence.index_put_((torch.arange(b, device=device), token0), _true(device))
     return DecodeState(
         token=token0, hidden=pre.last_hidden, k_cache=pre.k_cache, v_cache=pre.v_cache,
@@ -406,6 +423,8 @@ def init_decode(
     first_segment: int = 0,
     trailing: Optional[torch.Tensor] = None,
     step_limit: Optional[Union[int, Sequence[int], torch.Tensor]] = None,
+    vec_sampling: Optional[VecSampling] = None,
+    st_vec_sampling: Optional[VecSampling] = None,
 ) -> Union[DecodeState, Tuple[DecodeState, torch.Tensor]]:
     """Prefill + first-token sample; returns the decode state. ``kv_int8``
     keeps the talker KV cache as int8 dicts.
@@ -414,15 +433,21 @@ def init_decode(
     ``trailing``) the first frames run right after the prefill, and the
     result is ``(state, codes [B, first_segment, G])``, as from
     ``decode_segment``. ``step_limit`` (int or per row) caps each row's
-    frames; it defaults to ``first_segment``."""
+    frames; it defaults to ``first_segment``.
+
+    ``vec_sampling`` / ``st_vec_sampling`` make the talker's and the
+    sub-talker's controls per row from token 0 on (the continuous engine
+    admits requests through here, and token 0 must honour the request's own
+    controls, not the engine's)."""
     state = _prefill(talker_params, talker_cfg, inputs_embeds, pad_mask, sampling=sampling,
-                     max_cache_len=max_cache_len, generator=generator, kv_int8=kv_int8)
+                     max_cache_len=max_cache_len, generator=generator, kv_int8=kv_int8,
+                     vec_sampling=vec_sampling)
     if first_segment <= 0:
         return state
     limit = _row_limit(first_segment if step_limit is None else step_limit,
                        inputs_embeds.shape[0], inputs_embeds.device)
     return _decode(talker_params, st_params, talker_cfg, sampling, st_sampling, state,
-                   trailing, limit, first_segment)
+                   trailing, limit, first_segment, vec_sampling, st_vec_sampling)
 
 
 def _true(device) -> torch.Tensor:
@@ -451,16 +476,20 @@ def _frame_body(
     trailing: torch.Tensor,
     step_limit: torch.Tensor,  # [B] per-row frame budget
     generator: Optional[torch.Generator],
+    vec_sampling: Optional[VecSampling] = None,
+    st_vec_sampling: Optional[VecSampling] = None,
 ):
     """One frame of the AR loop: sub-talker → Σ-embed + trailing → talker
-    step → sample. Positions are per row (from ``num_gen``).
+    step → sample. Positions are per row (from ``num_gen``); with
+    ``vec_sampling`` / ``st_vec_sampling`` so are the talker's and the
+    sub-talker's sampling controls, read from those tensors at each frame.
 
     A frame in which no row is active changes nothing of the state and
     returns zeros, as a loop that stopped before it would have left them.
     The host reads no device value: the frame is captured as a CUDA graph."""
     eos_id = talker_cfg.codec_eos_token_id
     trailing_max = trailing.shape[1] - 1
-    process_and_sample = _processor(talker_cfg, sampling, trailing.device)
+    process_and_sample = _processor(talker_cfg, sampling, trailing.device, vec_sampling)
     dtype = talker_params["norm"].dtype
     rows = torch.arange(trailing.shape[0], device=trailing.device)
     true = _true(trailing.device)
@@ -471,7 +500,7 @@ def _frame_body(
         # 1) the sub-talker expands the current token into all groups.
         frame = st_mod.subtalker_generate(
             st_params, talker_cfg.code_predictor, talker_params["codec_embedding"],
-            st.hidden, st.token, st_sampling, generator,
+            st.hidden, st.token, st_sampling, generator, st_vec_sampling,
         )  # [B, G]
         num_gen = st.num_gen + active.int()
 
@@ -530,32 +559,39 @@ def _frame_loop(body, state: DecodeState, segment: int, step_limit: torch.Tensor
 def _decode_eager(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
                   sampling: SamplingConfig, st_sampling: SamplingConfig, state: DecodeState,
                   trailing: torch.Tensor, step_limit: torch.Tensor, segment: int,
+                  vec_sampling: Optional[VecSampling] = None,
+                  st_vec_sampling: Optional[VecSampling] = None,
                   check: bool = True) -> Tuple[DecodeState, torch.Tensor]:
     """``_frame_loop`` over ``_frame_body``, each op run as it comes."""
     body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                       trailing, step_limit, state.generator)
+                       trailing, step_limit, state.generator, vec_sampling, st_vec_sampling)
     return _frame_loop(body, state, segment, step_limit, talker_cfg.num_code_groups, check)
 
 
 def _decode(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
             sampling: SamplingConfig, st_sampling: SamplingConfig, state: DecodeState,
-            trailing: torch.Tensor, step_limit: torch.Tensor,
-            segment: int) -> Tuple[DecodeState, torch.Tensor]:
+            trailing: torch.Tensor, step_limit: torch.Tensor, segment: int,
+            vec_sampling: Optional[VecSampling] = None,
+            st_vec_sampling: Optional[VecSampling] = None,
+            ) -> Tuple[DecodeState, torch.Tensor]:
     """Up to ``segment`` frames from ``state``, as ``_frame_loop`` runs
     them: on the card, replays of one captured frame (``_FrameGraph``); on
-    the CPU, the same frames run eagerly."""
+    the CPU, the same frames run eagerly. The program's key marks per-row
+    sampling, not its values: one capture serves every mix of controls."""
     if not state.token.is_cuda:
         return _decode_eager(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                             state, trailing, step_limit, segment)
+                             state, trailing, step_limit, segment, vec_sampling, st_vec_sampling)
     rows = trailing_rows(trailing)
     cache = state.k_cache
     key = ("frame", state.token.device, tuple(state.hidden.shape), state.hidden.dtype,
            _cache_slots(cache), "int8" if isinstance(cache, dict) else cache.dtype,
-           rows, trailing.dtype, sampling, st_sampling, talker_cfg)
+           rows, trailing.dtype, sampling, st_sampling, talker_cfg,
+           "vec" if vec_sampling is not None else None,
+           "st_vec" if st_vec_sampling is not None else None)
     program = graphs.cached(key, (talker_params, st_params), lambda: _FrameGraph(
         talker_params, st_params, talker_cfg, sampling, st_sampling, state, trailing,
-        step_limit, rows))
-    return program.run(state, trailing, step_limit, segment)
+        step_limit, rows, vec_sampling, st_vec_sampling))
+    return program.run(state, trailing, step_limit, segment, vec_sampling, st_vec_sampling)
 
 
 # --------------------------------------------------------------------------
@@ -608,31 +644,38 @@ def fill_trailing(dst: torch.Tensor, trailing: torch.Tensor) -> None:
 class _FrameGraph:
     """One frame of the decode loop captured on the card, with the decode
     state it advances in place (one configuration: batch, cache, trailing
-    bucket, dtypes, sampling configs, parameter trees).
+    bucket, dtypes, sampling configs or per-row sampling, parameter trees).
 
     ``run`` copies the caller's state into the buffers, unless it is the
     state the last ``run`` returned, whose tensors are these buffers (the
-    stream's next segment). A state passed in is consumed, as the JAX
-    package donates it; if the buffers still hold the state returned to
-    another caller, that state first gets tensors of its own."""
+    stream's next segment, or a slot pool whose rows were written in
+    place). A state passed in is consumed, as the JAX package donates it; if
+    the buffers still hold the state returned to another caller, that state
+    first gets tensors of its own. The trailing text, the frame budgets and
+    the per-row sampling controls are loaded into their buffers at every
+    ``run``."""
 
     def __init__(self, talker_params, st_params, talker_cfg, sampling, st_sampling,
                  state: DecodeState, trailing: torch.Tensor, step_limit: torch.Tensor,
-                 rows: int):
+                 rows: int, vec_sampling: Optional[VecSampling] = None,
+                 st_vec_sampling: Optional[VecSampling] = None):
         b, d = state.hidden.shape
         device = state.token.device
         self.state = DecodeState(**{f: buffer_like(getattr(state, f)) for f in STATE_FIELDS})
         self.trailing = torch.empty((b, rows, d), dtype=trailing.dtype, device=device)
         self.limit = torch.empty(b, dtype=torch.int32, device=device)
+        self.vec = None if vec_sampling is None else vec_sampling.buffer_like()
+        self.st_vec = None if st_vec_sampling is None else st_vec_sampling.buffer_like()
         self.frame = torch.zeros((b, talker_cfg.num_code_groups), dtype=torch.int64,
                                  device=device)
         self.more = torch.zeros((), dtype=torch.bool, device=device)
         self.host_more = torch.zeros((), dtype=torch.bool, pin_memory=True)
         self.lent = None
-        generator = (torch.Generator(device=device)
-                     if sampling.do_sample or st_sampling.do_sample else None)
+        draws = (sampling.do_sample or st_sampling.do_sample or self.vec is not None
+                 or self.st_vec is not None)
+        generator = torch.Generator(device=device) if draws else None
         body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                           self.trailing, self.limit, generator)
+                           self.trailing, self.limit, generator, self.vec, self.st_vec)
         st = self.state
 
         def frame():
@@ -642,11 +685,13 @@ class _FrameGraph:
             self.frame.copy_(codes)
             self.more.copy_(_any_active(new, self.limit))
 
-        self._load(state, trailing, step_limit)  # the warm-up frame runs on it
+        # The warm-up frame runs on it.
+        self._load(state, trailing, step_limit, vec_sampling, st_vec_sampling)
         self.graph = graphs.Graph(frame, generator)
 
-    def _load(self, state: DecodeState, trailing: torch.Tensor,
-              step_limit: torch.Tensor) -> None:
+    def _load(self, state: DecodeState, trailing: torch.Tensor, step_limit: torch.Tensor,
+              vec_sampling: Optional[VecSampling], st_vec_sampling: Optional[VecSampling],
+              ) -> None:
         st = self.state
         if state.token is not st.token:
             holder = self.lent() if self.lent is not None else None
@@ -658,25 +703,31 @@ class _FrameGraph:
                 copy_into(getattr(st, f), getattr(state, f))
         fill_trailing(self.trailing, trailing)
         self.limit.copy_(step_limit)
+        for buf, src in ((self.vec, vec_sampling), (self.st_vec, st_vec_sampling)):
+            if buf is not None:
+                buf.copy_(src)
 
     def run(self, state: DecodeState, trailing: torch.Tensor, step_limit: torch.Tensor,
-            segment: int) -> Tuple[DecodeState, torch.Tensor]:
+            segment: int, vec_sampling: Optional[VecSampling] = None,
+            st_vec_sampling: Optional[VecSampling] = None) -> Tuple[DecodeState, torch.Tensor]:
         """``_frame_loop`` by replays: the flag of whether any row is still
         active is read every CHECK_EVERY frames, after the frames before it
-        are queued."""
-        self._load(state, trailing, step_limit)
-        buf = torch.zeros((self.frame.shape[0], segment, self.frame.shape[1]),
-                          dtype=torch.int64, device=self.frame.device)
-        with self.graph.drawing_from(state.generator):
-            for tick in range(segment):
-                if (tick and tick % CHECK_EVERY == 0
-                        and not graphs.read_flag(self.more, self.host_more)):
-                    break
-                self.graph.replay()
-                buf[:, tick] = self.frame
-        out = dataclasses.replace(self.state, generator=state.generator)
-        self.lent = weakref.ref(out)
-        return out, buf
+        are queued. Holds ``graphs.device_lock``: the buffers are shared by
+        every caller of this program."""
+        with graphs.device_lock:
+            self._load(state, trailing, step_limit, vec_sampling, st_vec_sampling)
+            buf = torch.zeros((self.frame.shape[0], segment, self.frame.shape[1]),
+                              dtype=torch.int64, device=self.frame.device)
+            with self.graph.drawing_from(state.generator):
+                for tick in range(segment):
+                    if (tick and tick % CHECK_EVERY == 0
+                            and not graphs.read_flag(self.more, self.host_more)):
+                        break
+                    self.graph.replay()
+                    buf[:, tick] = self.frame
+            out = dataclasses.replace(self.state, generator=state.generator)
+            self.lent = weakref.ref(out)
+            return out, buf
 
 
 def decode_segment(
@@ -690,7 +741,11 @@ def decode_segment(
     st_sampling: SamplingConfig,
     segment: int,
     step_limit: Optional[Union[int, Sequence[int], torch.Tensor]] = None,
-) -> Tuple[DecodeState, torch.Tensor]:
+    vec_sampling: Optional[VecSampling] = None,
+    st_vec_sampling: Optional[VecSampling] = None,
+    with_report: bool = False,
+) -> Union[Tuple[DecodeState, torch.Tensor],
+           Tuple[DecodeState, torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]]:
     """Resume ``state`` for up to ``segment`` frames: the streaming engine.
     Returns (state, codes [B, segment, G]); a row's new frames are its
     ``num_gen`` delta. ``step_limit`` (int or per row) caps each row's total
@@ -699,12 +754,23 @@ def decode_segment(
     int8 dicts), the sampling generator and the repetition history carry
     over in ``state``, which is consumed: on the card the returned state's
     tensors are the captured frame's buffers, which the next call with
-    another state rewrites once this one holds copies of its own."""
+    another state rewrites once this one holds copies of its own.
+    ``vec_sampling`` / ``st_vec_sampling`` make every sampling control per
+    row (``sampling`` and ``st_sampling`` then only name the program).
+
+    ``with_report=True`` adds a third output, ``(num_gen, eos)`` in tensors
+    of their own: copies taken on the stream right after the segment. The
+    returned state's tensors are the frame program's buffers, which the next
+    segment's replays overwrite; a double-buffered caller dispatches that
+    segment before it reads this one's report."""
     b = state.token.shape[0]
     device = state.token.device
     limit = _row_limit(state.num_gen + segment if step_limit is None else step_limit, b, device)
-    return _decode(talker_params, st_params, talker_cfg, sampling, st_sampling, state,
-                   trailing, limit, segment)
+    state, codes = _decode(talker_params, st_params, talker_cfg, sampling, st_sampling, state,
+                           trailing, limit, segment, vec_sampling, st_vec_sampling)
+    if not with_report:
+        return state, codes
+    return state, codes, (state.num_gen.clone(), state.eos.clone())
 
 
 def generate_codes(

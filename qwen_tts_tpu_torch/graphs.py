@@ -35,6 +35,17 @@ Sampling. A program that samples draws from a generator of its own,
 registered with its graph; ``Graph.drawing_from(generator)`` hands the
 caller's generator state to it around the replays and back, so the draws
 continue the caller's stream as eager calls would.
+
+Threads. ``device_lock`` serialises the port's card work across threads. A
+capture holds it (PyTorch captures in the global mode, where a CUDA call of
+another thread, a ``cudaMalloc`` of the caching allocator say, fails the
+capture), and so does a program's run from loading its buffers to copying
+its outputs out (two threads replaying one program would write each other's
+buffers); so does the registry. The serving engines hold it around each
+admission, segment and codec decode of their worker thread, and a thread
+that does card work beside them (a prompt built on the card, a voice
+cloned) holds it for that work. It is reentrant and granted in turn
+(``FairLock``).
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import threading
 import time
 import weakref
 from typing import Callable, Dict, Optional, Sequence, Tuple, TypeVar
@@ -61,6 +73,51 @@ MAX_PROGRAMS = 8
 _WRAPPERS = (decode_attention, decode_attention_int8, subtalker_step, vocoder_block, int8_matmul)
 _programs: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
 _live: "weakref.WeakSet[Graph]" = weakref.WeakSet()  # the captured graphs alive
+
+
+class FairLock:
+    """A reentrant lock granted in the order threads asked for it. A thread
+    that releases it and asks again queues behind the threads already
+    waiting, so an engine's worker, which takes it for each segment, cannot
+    starve a request thread that needs the card for a moment."""
+
+    def __init__(self):
+        self._cond = threading.Condition(threading.Lock())
+        self._owner: Optional[int] = None
+        self._depth = 0
+        self._waiting: "collections.deque[int]" = collections.deque()
+
+    def acquire(self) -> bool:
+        me = threading.get_ident()
+        with self._cond:
+            if self._owner == me:
+                self._depth += 1
+                return True
+            self._waiting.append(me)
+            while self._owner is not None or self._waiting[0] != me:
+                self._cond.wait()
+            self._waiting.popleft()
+            self._owner, self._depth = me, 1
+            return True
+
+    def release(self) -> None:
+        with self._cond:
+            if self._owner != threading.get_ident():
+                raise RuntimeError("release of a FairLock this thread does not hold")
+            self._depth -= 1
+            if self._depth == 0:
+                self._owner = None
+                self._cond.notify_all()
+
+    def __enter__(self) -> "FairLock":
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+device_lock = FairLock()
 
 T = TypeVar("T")
 
@@ -94,6 +151,10 @@ class Graph:
     generator ``fn`` draws from."""
 
     def __init__(self, fn: Callable, generator: Optional[torch.Generator] = None):
+        with device_lock:
+            self._capture(fn, generator)
+
+    def _capture(self, fn: Callable, generator: Optional[torch.Generator]) -> None:
         t0 = time.perf_counter()
         self.generator = generator
         self._fn = fn  # keeps what the graph reads alive
@@ -156,31 +217,35 @@ def cached(key: tuple, trees: Sequence[dict], build: Callable[[], T]) -> T:
     """The program of ``key`` captured on ``trees`` (parameter dicts),
     built by ``build`` on first use."""
     full = (tuple(id(t) for t in trees),) + tuple(key)
-    entry = _programs.get(full)
-    if entry is None:
-        entry = (build(), tuple(trees))
-        _programs[full] = entry
-        while len(_programs) > MAX_PROGRAMS:
-            _programs.popitem(last=False)
-    else:
-        _programs.move_to_end(full)
-    return entry[0]
+    with device_lock:
+        entry = _programs.get(full)
+        if entry is None:
+            entry = (build(), tuple(trees))
+            _programs[full] = entry
+            while len(_programs) > MAX_PROGRAMS:
+                _programs.popitem(last=False)
+        else:
+            _programs.move_to_end(full)
+        return entry[0]
 
 
 def drop(*trees: dict) -> None:
     """Drop every program captured on any of ``trees``."""
     ids = {id(t) for t in trees}
-    for key in [k for k in _programs if ids & set(k[0])]:
-        del _programs[key]
-    gc.collect()  # a program and its captured function refer to each other
+    with device_lock:
+        for key in [k for k in _programs if ids & set(k[0])]:
+            del _programs[key]
+        gc.collect()  # a program and its captured function refer to each other
 
 
 def clear() -> None:
     """Drop every program."""
-    _programs.clear()
-    gc.collect()
+    with device_lock:
+        _programs.clear()
+        gc.collect()
 
 
 def programs() -> list:
     """The live programs, least recently used first, as (kind, program)."""
-    return [(key[1], entry[0]) for key, entry in _programs.items()]
+    with device_lock:
+        return [(key[1], entry[0]) for key, entry in _programs.items()]

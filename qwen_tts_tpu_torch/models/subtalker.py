@@ -34,6 +34,7 @@ from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 from qwen_tts_tpu_torch.ops.sampling import SamplingConfig, sample_token
+from qwen_tts_tpu_torch.ops.sampling_vec import VecSampling, sample_token_vec
 
 
 def subtalker_dims(cfg: CodePredictorConfig) -> TrunkDims:
@@ -101,9 +102,12 @@ def subtalker_generate(
     first_code: torch.Tensor,              # [B] codebook-0 token
     sampling: SamplingConfig,
     generator: Optional[torch.Generator] = None,
+    vec_sampling: Optional[VecSampling] = None,
 ) -> torch.Tensor:
     """Run the micro-decode for one frame. Returns codes [B, G] int64
-    (column 0 = first_code)."""
+    (column 0 = first_code). With ``vec_sampling`` each row draws its codes
+    under its own controls (``sample_token_vec``; the sub-talker applies the
+    warpers only, no penalty or EOS ban) and ``sampling`` is not read."""
     g = cfg.num_code_groups
     dims = subtalker_dims(cfg)
     b = prev_hidden.shape[0]
@@ -142,7 +146,8 @@ def subtalker_generate(
             continue  # position 0 emits no token
         hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
         logits = _lm_head_logits(params, hidden, pos - 1)
-        codes.append(sample_token(logits, sampling, generator))
+        codes.append(sample_token(logits, sampling, generator) if vec_sampling is None
+                     else sample_token_vec(logits, vec_sampling, generator))
     return torch.stack(codes, dim=1)
 
 

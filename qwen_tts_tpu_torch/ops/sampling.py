@@ -8,6 +8,12 @@ top-k and top-p, then a categorical draw from an explicit
 so sampled traces agree with the JAX package only in their semantics;
 greedy decoding is an argmax over identically processed logits and agrees
 token for token.
+
+A division by a control (temperature, repetition penalty) divides by a
+tensor on the logits' device: on the card PyTorch turns a division by a
+Python number into a product with its reciprocal, which can differ in the
+last bit, and the per-row path (``ops/sampling_vec.py``) must give these
+bits.
 """
 
 from __future__ import annotations
@@ -45,8 +51,14 @@ def apply_repetition_penalty(
 ) -> torch.Tensor:
     if penalty == 1.0:
         return logits
-    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    penalized = torch.where(logits > 0, logits / _divisor(logits, penalty), logits * penalty)
     return torch.where(presence, penalized, logits)
+
+
+def _divisor(logits: torch.Tensor, value: float) -> torch.Tensor:
+    """``value`` as a [1, 1] tensor on the logits' device (a fill, which a
+    CUDA graph capture takes)."""
+    return logits.new_full((1, 1), value)
 
 
 def _top_k_filter(logits: torch.Tensor, k: int) -> torch.Tensor:
@@ -86,7 +98,7 @@ def sample_token(
     graph."""
     if not cfg.do_sample:
         return torch.argmax(logits, dim=-1)
-    warped = logits / max(cfg.temperature, 1e-5)
+    warped = logits / _divisor(logits, max(cfg.temperature, 1e-5))
     warped = _top_k_filter(warped, cfg.top_k)
     warped = _top_p_filter(warped, cfg.top_p)
     probs = torch.softmax(warped, dim=-1)

@@ -141,12 +141,13 @@ class _FirstPacketGraph:
         self.limit.fill_(step_limit)
 
     def run(self, embeds, mask, trailing, step_limit, generator):
-        self._load(embeds, mask, trailing, step_limit)
-        with self.graph.drawing_from(generator):
-            self.graph.replay()
-        state, seg, wav = self.graph.outputs
-        return (dataclasses.replace(clone_state(state), generator=generator), seg.clone(),
-                wav.clone())
+        with graphs.device_lock:
+            self._load(embeds, mask, trailing, step_limit)
+            with self.graph.drawing_from(generator):
+                self.graph.replay()
+            state, seg, wav = self.graph.outputs
+            return (dataclasses.replace(clone_state(state), generator=generator), seg.clone(),
+                    wav.clone())
 
 
 def _codec_window(codec_params: dict, dec_cfg, window: torch.Tensor) -> torch.Tensor:
@@ -169,9 +170,10 @@ class _CodecGraph:
             lambda: codec_mod.codec_decode(codec_params, dec_cfg, self.window))
 
     def run(self, window: torch.Tensor) -> torch.Tensor:
-        self.window.copy_(window)
-        self.graph.replay()
-        return self.graph.outputs.clone()
+        with graphs.device_lock:
+            self.window.copy_(window)
+            self.graph.replay()
+            return self.graph.outputs.clone()
 
 
 class Qwen3TTSModel:
@@ -329,11 +331,30 @@ class Qwen3TTSModel:
     def generate_codes_from_prompts(
         self, prompts: Sequence[Prompt], params: GenerationParams, *,
         trim_last_on_budget: bool = True,
+        step_limit: Optional[Sequence[int]] = None,
+        max_new_ceiling: Optional[int] = None,
+        pad_batch_to: Optional[int] = None,
+        trailing_bucket: Optional[int] = None,
     ) -> Tuple[List[np.ndarray], Dict[str, Any]]:
         """Run the decode loop; returns per-utterance [T_i, G] int32 codes and
         ``{"num_gen", "stopped"}``. ``trim_last_on_budget=False`` keeps the
-        final frame of a row that ran out of budget (``generate_codes``)."""
-        embeds, mask, trailing, _ = batch_prompts(prompts)
+        final frame of a row that ran out of budget (``generate_codes``).
+
+        The keywords after it serve the window engine, whose windows vary in
+        batch, budgets and trailing length, and each new shape is a new
+        capture: ``max_new_ceiling`` sizes the cache and the program for that
+        budget and ``step_limit`` gives each row its own (<= the ceiling);
+        ``pad_batch_to`` pads the batch with copies of row 0 held to one
+        frame (dropped on return); ``trailing_bucket`` rounds the trailing
+        text's length (its pad rows are tts_pad, which a row takes past its
+        text anyway)."""
+        n_real = len(prompts)
+        if pad_batch_to and pad_batch_to > n_real:
+            prompts = list(prompts) + [prompts[0]] * (pad_batch_to - n_real)
+            limits = (list(step_limit) if step_limit is not None
+                      else [params.max_new_tokens] * n_real)
+            step_limit = limits + [1] * (pad_batch_to - n_real)
+        embeds, mask, trailing, _ = batch_prompts(prompts, trailing_bucket=trailing_bucket)
         dtype = self.talker_params["norm"].dtype
         generator = torch.Generator(device=self.device).manual_seed(params.seed)
         out = generate_codes(
@@ -341,15 +362,16 @@ class Qwen3TTSModel:
             embeds.to(dtype), mask, trailing.to(dtype),
             sampling=params.talker_sampling(),
             st_sampling=params.subtalker_sampling(),
-            max_new_tokens=params.max_new_tokens,
+            max_new_tokens=max_new_ceiling or params.max_new_tokens,
             generator=generator,
             trim_last_on_budget=trim_last_on_budget,
+            step_limit=step_limit,
             kv_int8=self.kv_int8,
         )
-        codes = out.codes.cpu().numpy().astype(np.int32)
-        num_gen = out.num_gen.cpu().numpy()
-        per_row = [codes[i, : num_gen[i]] for i in range(codes.shape[0])]
-        return per_row, {"num_gen": num_gen, "stopped": out.stopped.cpu().numpy()}
+        codes = out.codes[:n_real].cpu().numpy().astype(np.int32)
+        num_gen = out.num_gen[:n_real].cpu().numpy()
+        per_row = [codes[i, : num_gen[i]] for i in range(n_real)]
+        return per_row, {"num_gen": num_gen, "stopped": out.stopped[:n_real].cpu().numpy()}
 
     def decode_codes(self, codes_list: Sequence[np.ndarray], *,
                      bucket: Optional[int] = None) -> List[np.ndarray]:

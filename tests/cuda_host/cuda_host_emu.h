@@ -13,6 +13,7 @@
 #include <barrier>
 #include <chrono>
 #include <cmath>
+#include <condition_variable>
 #include <cstdint>
 #include <cstring>
 #include <map>
@@ -83,12 +84,18 @@ inline __nv_bfloat162 __floats2bfloat162_rn(float a, float b) { return {__float2
 inline float2 __bfloat1622float2(__nv_bfloat162 h) { return {__bfloat162float(h.x), __bfloat162float(h.y)}; }
 
 namespace emu {
-struct Warp {
-  std::barrier<> bar{32};
+// A warp's exchange slots, two sets: a collective (shuffle, ldmatrix, mma)
+// writes the set of its parity, meets the warp at one barrier and reads it.
+// A lane writes a set again two collectives later, after every lane has
+// passed the barrier of the one between, so every read of it is done.
+struct Exchange {
   uint32_t xch[32];
   uint32_t a[32][4], b[32][2];
-  float d[32][4];
   const void* addr[32];
+};
+struct Warp {
+  std::barrier<> bar{32};
+  Exchange x[2];
 };
 struct Block {
   explicit Block(int threads) : bar(threads), warps(new Warp[threads / 32]) {}
@@ -111,8 +118,11 @@ struct Tls {
   Cluster* cl;
   unsigned char* smem;
   std::optional<std::barrier<>::arrival_token> token;
+  unsigned collectives;  // the warp collectives this lane has run
 };
 inline thread_local Tls tls;
+// The exchange set of this lane's next warp collective.
+inline Exchange& exchange() { return tls.w->x[tls.collectives++ & 1]; }
 }  // namespace emu
 
 #define threadIdx (emu::tls.thread_idx)
@@ -124,13 +134,12 @@ inline void __syncthreads() { emu::tls.blk->bar.arrive_and_wait(); }
 template <typename V>
 inline V __shfl_xor_sync(unsigned, V v, int off) {
   static_assert(sizeof(V) == 4, "32-bit shuffles");
-  auto& w = *emu::tls.w;
+  auto& x = emu::exchange();
   uint32_t u;
   memcpy(&u, &v, 4);
-  w.xch[emu::tls.lane] = u;
-  w.bar.arrive_and_wait();
-  u = w.xch[emu::tls.lane ^ off];
-  w.bar.arrive_and_wait();
+  x.xch[emu::tls.lane] = u;
+  emu::tls.w->bar.arrive_and_wait();
+  u = x.xch[emu::tls.lane ^ off];
   memcpy(&v, &u, 4);
   return v;
 }
@@ -152,31 +161,37 @@ inline void cluster_wait() {
   emu::tls.token.reset();
 }
 inline float bf(uint32_t w, int hi) { return __uint_as_float(hi ? (w & 0xffff0000u) : (w << 16)); }
-// m16n8k16 row.col bf16 -> f32, per the PTX fragment layouts.
+// m16n8k16 row.col bf16 -> f32, per the PTX fragment layouts. Lane l holds
+// D rows g and g + 8, columns 2t and 2t + 1 (g = l / 4, t = l % 4): it reads
+// those two rows of A from lanes 4g..4g+3 and those two columns of B from
+// lanes 2t*4.. (column n of B lives in lanes 4n..4n+3).
 inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  auto& w = *emu::tls.w;
+  auto& x = emu::exchange();
   const int l = emu::tls.lane;
-  for (int i = 0; i < 4; ++i) w.a[l][i] = a[i];
-  for (int i = 0; i < 2; ++i) w.b[l][i] = b[i];
-  w.bar.arrive_and_wait();
-  float A[16][16], B[16][8];
-  for (int ln = 0; ln < 32; ++ln) {
-    const int g = ln / 4, t = ln % 4;
+  for (int i = 0; i < 4; ++i) x.a[l][i] = a[i];
+  for (int i = 0; i < 2; ++i) x.b[l][i] = b[i];
+  emu::tls.w->bar.arrive_and_wait();
+  const int g = l / 4, t = l % 4;
+  float A[2][16], B[16][2];
+  for (int tt = 0; tt < 4; ++tt) {
+    const int ln = 4 * g + tt;  // A rows g and g + 8, columns 2tt, 2tt + 1, + 8
     for (int h = 0; h < 2; ++h) {
-      A[g][2 * t + h] = bf(w.a[ln][0], h);
-      A[g + 8][2 * t + h] = bf(w.a[ln][1], h);
-      A[g][2 * t + 8 + h] = bf(w.a[ln][2], h);
-      A[g + 8][2 * t + 8 + h] = bf(w.a[ln][3], h);
-      B[2 * t + h][g] = bf(w.b[ln][0], h);
-      B[2 * t + 8 + h][g] = bf(w.b[ln][1], h);
+      A[0][2 * tt + h] = bf(x.a[ln][0], h);
+      A[1][2 * tt + h] = bf(x.a[ln][1], h);
+      A[0][2 * tt + 8 + h] = bf(x.a[ln][2], h);
+      A[1][2 * tt + 8 + h] = bf(x.a[ln][3], h);
+    }
+    for (int c = 0; c < 2; ++c) {  // B columns 2t and 2t + 1, rows 2tt, 2tt + 1, + 8
+      const int lb = 4 * (2 * t + c) + tt;
+      for (int h = 0; h < 2; ++h) {
+        B[2 * tt + h][c] = bf(x.b[lb][0], h);
+        B[2 * tt + 8 + h][c] = bf(x.b[lb][1], h);
+      }
     }
   }
-  w.bar.arrive_and_wait();
-  const int g = l / 4, t = l % 4;
-  const int rows[4] = {g, g, g + 8, g + 8}, cols[4] = {2 * t, 2 * t + 1, 2 * t, 2 * t + 1};
   for (int i = 0; i < 4; ++i) {
     double s = d[i];
-    for (int k = 0; k < 16; ++k) s += (double)A[rows[i]][k] * B[k][cols[i]];
+    for (int k = 0; k < 16; ++k) s += (double)A[i / 2][k] * B[k][i % 2];
     d[i] = (float)s;
   }
 }
@@ -185,23 +200,22 @@ inline void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
 // matrix l / 8; register i of lane l takes matrix i's row l / 4, columns
 // 2 (l % 4) and + 1 (transposed: rows 2 (l % 4) and + 1 of column l / 4).
 inline void ldsm_x4_any(uint32_t* r, const void* p, bool trans) {
-  auto& w = *emu::tls.w;
+  auto& x = emu::exchange();
   const int l = emu::tls.lane;
-  w.addr[l] = p;
-  w.bar.arrive_and_wait();
+  x.addr[l] = p;
+  emu::tls.w->bar.arrive_and_wait();
   for (int i = 0; i < 4; ++i) {
     uint16_t lo, hi;
     if (trans) {
-      lo = static_cast<const uint16_t*>(w.addr[8 * i + 2 * (l % 4)])[l / 4];
-      hi = static_cast<const uint16_t*>(w.addr[8 * i + 2 * (l % 4) + 1])[l / 4];
+      lo = static_cast<const uint16_t*>(x.addr[8 * i + 2 * (l % 4)])[l / 4];
+      hi = static_cast<const uint16_t*>(x.addr[8 * i + 2 * (l % 4) + 1])[l / 4];
     } else {
-      const uint16_t* row = static_cast<const uint16_t*>(w.addr[8 * i + l / 4]);
+      const uint16_t* row = static_cast<const uint16_t*>(x.addr[8 * i + l / 4]);
       lo = row[2 * (l % 4)];
       hi = row[2 * (l % 4) + 1];
     }
     r[i] = (uint32_t)lo | (uint32_t)hi << 16;
   }
-  w.bar.arrive_and_wait();
 }
 inline void ldsm_x4(uint32_t* r, const void* p) { ldsm_x4_any(r, p, false); }
 inline void ldsm_x4_trans(uint32_t* r, const void* p) { ldsm_x4_any(r, p, true); }
@@ -221,12 +235,14 @@ inline uint64_t global_ns() {
 // mbarriers: a table keyed by the barrier's address in the emulated shared
 // memory, under one lock. A phase completes when its pending arrivals and
 // its transaction bytes both reach 0; the bytes may be counted down before
-// they are expected, as on the card.
+// they are expected, as on the card. A waiter sleeps on the barrier's
+// condition variable, notified where a phase completes.
 namespace emu {
 struct Mbar {
-  int count, pending;
-  long long tx;
-  uint32_t phase;
+  int count = 0, pending = 0;
+  long long tx = 0;
+  uint32_t phase = 0;
+  std::condition_variable cv;
 };
 inline std::mutex mbar_lock;
 inline std::map<const void*, Mbar> mbars;
@@ -234,12 +250,16 @@ inline void mbar_settle(Mbar& b) {
   if (b.pending == 0 && b.tx == 0) {
     b.phase ^= 1;
     b.pending = b.count;
+    b.cv.notify_all();
   }
 }
 }  // namespace emu
 inline void mbar_init(uint64_t* bar, uint32_t count) {
   std::lock_guard<std::mutex> g(emu::mbar_lock);
-  emu::mbars[bar] = {(int)count, (int)count, 0, 0};
+  emu::Mbar& b = emu::mbars[bar];
+  b.count = b.pending = (int)count;
+  b.tx = 0;
+  b.phase = 0;
 }
 inline void fence_mbarrier_init() {}
 inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
@@ -250,13 +270,9 @@ inline void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   emu::mbar_settle(b);
 }
 inline void mbar_wait(uint64_t* bar, uint32_t parity) {
-  for (;;) {
-    {
-      std::lock_guard<std::mutex> g(emu::mbar_lock);
-      if (emu::mbars.at(bar).phase != parity) return;
-    }
-    std::this_thread::yield();
-  }
+  std::unique_lock<std::mutex> g(emu::mbar_lock);
+  emu::Mbar& b = emu::mbars.at(bar);
+  b.cv.wait(g, [&] { return b.phase != parity; });
 }
 // st.async into a peer's shared memory: the copy, then its bytes counted
 // on the peer's barrier.
@@ -316,6 +332,7 @@ int run(K kernel, dim3 grid, int smem_bytes, const P& prm, int block_threads = 1
             tls.warp = t / 32;
             tls.blk = blocks[x].get();
             tls.w = &blocks[x]->warps[t / 32];
+            tls.collectives = 0;
             tls.cl = &clusters[x / cluster_x];
             tls.smem = blocks[x]->smem.data();
             kernel(prm);

@@ -8,6 +8,7 @@ the result is (cudaError code, output, the launch plan). ``tests/test_torch_voco
 subprocess with a time limit."""
 
 import ctypes
+import os
 import sys
 
 import torch
@@ -35,6 +36,13 @@ def run(lib, case):
 
 
 def main(lib_path, cases_path, out_path):
+    # One OS thread per emulated CUDA thread, hundreds at once: on half the
+    # cores, at a lower priority, the emulation leaves the test suite's other
+    # workers cores of their own (XLA's CPU collectives in the JAX package's
+    # multi-device tests can lose a participant when every core is crowded).
+    cores = sorted(os.sched_getaffinity(0))
+    os.sched_setaffinity(0, cores[: max(2, len(cores) // 2)])
+    os.nice(10)
     lib = ctypes.CDLL(lib_path)
     lib.qtts_vocoder_block.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_void_p] * 2
                                        + [ctypes.c_int] * 11 + [ctypes.c_void_p] * 2)

@@ -816,3 +816,178 @@ def test_clone_codes_on_the_card_equal_the_cpu_codes(device, tmp_path):
     wavs, _ = card.generate_voice_clone(texts, prompt, langs, **kw)
     up = card.cfg.codec.decode_upsample_rate
     assert [w.shape for w in wavs] == [(5 * up,)] * 2
+
+
+# The serving engines on the card: per-row sampling inside a captured
+# program, slot insertion in place, the segment report, the device lock.
+
+@pytest.mark.parametrize("name", ["plain", "top_k", "top_p", "both"])
+def test_sample_token_vec_equals_sample_token_in_a_captured_graph(device, name):
+    """Rows that all hold one static config: ``sample_token_vec`` replayed
+    in a CUDA graph draws ``sample_token``'s tokens, bit for bit, from the
+    same generator state; greedy rows are the argmax."""
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch.ops.sampling import SamplingConfig, sample_token
+    from qwen_tts_tpu_torch.ops.sampling_vec import VecSampling, sample_token_vec
+
+    cfg = {"plain": SamplingConfig(top_k=0), "top_k": SamplingConfig(temperature=0.7, top_k=20),
+           "top_p": SamplingConfig(temperature=1.3, top_k=0, top_p=0.6),
+           "both": SamplingConfig(temperature=0.9, top_k=50, top_p=0.8)}[name]
+    g = torch.Generator(device=device).manual_seed(1)
+    logits = torch.randn(8, 2048, generator=g, device=device) * 3
+    vs = VecSampling.broadcast(cfg, 8, device)
+    out = {}
+    for side, fn in (("static", lambda gen: sample_token(logits, cfg, gen)),
+                     ("vec", lambda gen: sample_token_vec(logits, vs, gen))):
+        gen = torch.Generator(device=device)
+        graph = graphs.Graph(lambda fn=fn, gen=gen: fn(gen), gen)
+        tokens = []
+        for seed in range(5):
+            with graph.drawing_from(torch.Generator(device=device).manual_seed(seed)):
+                graph.replay()
+            tokens.append(graph.outputs.clone())
+        out[side] = torch.stack(tokens)
+    assert torch.equal(out["static"], out["vec"])
+    vs.do_sample[::2] = False
+    greedy = sample_token_vec(logits, vs, torch.Generator(device=device).manual_seed(0))
+    assert torch.equal(greedy[::2], logits.argmax(-1)[::2])
+
+
+def _tiny_engine(device, tmp_path, **kw):
+    from qwen_tts_tpu_torch.continuous import ContinuousBatchingEngine
+
+    model = _tiny_card_model(device, tmp_path)
+    return model, ContinuousBatchingEngine(model, **{**dict(
+        num_slots=4, segment_frames=4, max_new_tokens=16, prefill_bucket=16, trailing_cap=32),
+        **kw})
+
+
+def _slot_request(model, n, frames):
+    import dataclasses
+
+    from qwen_tts_tpu_torch.continuous import _SlotRequest
+    from qwen_tts_tpu_torch.generate import GenerationParams, build_prompt
+
+    prompt = build_prompt(model.talker_params, model.cfg,
+                          [1, 2, 3] + list(range(10, 10 + n)) + [4, 5, 1, 2, 3],
+                          language="auto", speaker="aiden")
+    params = dataclasses.replace(GenerationParams(max_new_tokens=frames + 1).greedy(),
+                                 min_new_tokens=frames + 2)
+    return _SlotRequest(prompt, params)
+
+
+def _segment(engine):
+    from qwen_tts_tpu_torch.generate import decode_segment
+
+    engine._state, codes, report = decode_segment(
+        engine.model.talker_params, engine.model.subtalker_params, engine.model.cfg.talker,
+        engine._state, engine._trailing, sampling=engine._static_sampling[0],
+        st_sampling=engine._static_sampling[1], segment=engine.segment_frames,
+        step_limit=engine._limits, vec_sampling=engine._vec, st_vec_sampling=engine._st_vec,
+        with_report=True)
+    return codes, report
+
+
+class _BigCopies(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts copies that write at least ``numel`` elements."""
+
+    def __init__(self, numel):
+        super().__init__()
+        self.numel, self.count = numel, 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (torch.ops.aten.copy_.default, torch.ops.aten._to_copy.default,
+                    torch.ops.aten.clone.default) and args[0].numel() >= self.numel:
+            self.count += 1
+        return func(*args, **kwargs)
+
+
+def test_admission_writes_one_row_of_the_pool_in_place(device, tmp_path):
+    """The pool's state after a segment is the frame program's buffers; an
+    admission writes its row into them (the cache's data_ptr unchanged, no
+    copy of the whole cache), and the next segment loads no state."""
+    from qwen_tts_tpu_torch import graphs
+
+    graphs.clear()
+    model, engine = _tiny_engine(device, tmp_path)
+    engine._admit(0, _slot_request(model, 4, 12))
+    _segment(engine)
+    (kind, program), = [p for p in graphs.programs() if p[0] == "frame"]
+    cache = engine._state.k_cache
+    assert cache is program.state.k_cache and engine._state.token is program.state.token
+    ptr, big = cache.data_ptr(), _BigCopies(cache.numel())
+    with big:
+        engine._admit(1, _slot_request(model, 7, 12))
+        _segment(engine)
+    assert engine._state.k_cache.data_ptr() == ptr and engine._state.k_cache is cache
+    assert big.count == 0
+    assert engine._state.num_gen.tolist()[:2] == [8, 4]
+    graphs.clear()
+
+
+def test_segment_report_survives_the_next_dispatch(device, tmp_path):
+    """``with_report``: segment K's (num_gen, eos) read after segment K+1 is
+    dispatched equal a read taken right after K, though K+1 has since
+    rewritten the state's buffers."""
+    from qwen_tts_tpu_torch import graphs
+
+    graphs.clear()
+    model, engine = _tiny_engine(device, tmp_path)
+    engine._admit(0, _slot_request(model, 4, 12))
+    engine._admit(2, _slot_request(model, 9, 6))
+    _, report = _segment(engine)
+    sync = (engine._state.num_gen.cpu(), engine._state.eos.cpu())
+    _segment(engine)  # K+1, dispatched before K's report is read
+    assert torch.equal(report[0].cpu(), sync[0]) and torch.equal(report[1].cpu(), sync[1])
+    assert not torch.equal(engine._state.num_gen.cpu(), sync[0])
+    graphs.clear()
+
+
+def test_prompt_built_on_another_thread_during_a_capture(device, tmp_path):
+    """A thread that builds prompts on the card (under ``device_lock``, as
+    the engines' submitters do) while another captures a frame program: the
+    capture neither fails nor changes its codes."""
+    import threading
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch import graphs
+
+    model = _tiny_card_model(device, tmp_path)
+    prompts = [_slot_request(model, n, 8).prompt for n in (4, 7)]
+    gp = _slot_request(model, 4, 8).params
+    e, m, t, _ = gen_mod.batch_prompts(prompts, bucket=16)
+
+    def codes():
+        graphs.clear()  # each call captures its frame anew
+        out = gen_mod.generate_codes(model.talker_params, model.subtalker_params,
+                                     model.cfg.talker, e, m, t,
+                                     sampling=gp.talker_sampling(),
+                                     st_sampling=gp.subtalker_sampling(), max_new_tokens=9,
+                                     generator=None)
+        return out.codes.cpu()
+
+    want = codes()
+    stop, built, errors = threading.Event(), [], []
+
+    def build_prompts():
+        try:
+            while not stop.is_set():
+                with graphs.device_lock:
+                    built.append(gen_mod.build_prompt(
+                        model.talker_params, model.cfg, [1, 2, 3, 10, 11, 4, 5, 1, 2, 3],
+                        language="english", speaker="aiden").embeds.sum().item())
+        except Exception as exc:  # reported below
+            errors.append(exc)
+
+    thread = threading.Thread(target=build_prompts)
+    thread.start()
+    try:
+        got = [codes() for _ in range(3)]
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    assert not thread.is_alive() and not errors and len(built) > 0
+    assert all(torch.equal(g, want) for g in got)
+    assert len(set(built)) == 1
+    graphs.clear()

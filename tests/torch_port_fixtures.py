@@ -157,3 +157,85 @@ def build_host_library(source: str, work) -> str:
         capture_output=True, text=True, timeout=600)
     assert build.returncode == 0, build.stderr[-4000:]
     return lib
+
+
+# --------------------------------------------------------------------------
+# The serving stack's tests (tests/test_torch_serving.py, _continuous*.py,
+# _server.py): both packages on the shared clone checkpoint, f32 on the
+# CPU, and the JAX package's solo greedy codes as the reference.
+# --------------------------------------------------------------------------
+
+# Engines decode at this ceiling; each JAX reference decodes at the same
+# ceiling with its row's budget (``step_limit``), so one compiled program
+# serves every budget and the caches have the engines' length.
+SERVING_CEILING = 16
+SERVING_BUCKET = 32
+
+
+def serving_models(ckpt: str, kv_int8: bool = False):
+    """(JAX model, port model) from ``ckpt``: f32 talkers, the port on the
+    CPU, ``FakeTokenizer`` (tests/test_voice_clone.py) for text requests, the
+    same tamed codec on both sides."""
+    import jax.numpy as jnp
+
+    from test_voice_clone import FakeTokenizer
+    from qwen_tts_tpu.pipeline import Qwen3TTSModel as JaxModel
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel as TorchModel
+
+    jm = JaxModel.from_pretrained(ckpt, talker_dtype=jnp.float32, load_tokenizer=False)
+    tm = TorchModel.from_pretrained(ckpt, talker_dtype=torch.float32, device="cpu",
+                                    load_tokenizer=False)
+    jm.tokenizer = tm.tokenizer = FakeTokenizer()
+    jm.codec_params = tame_codec(jm.codec_params)
+    tm.codec_params = tame_codec(tm.codec_params)
+    jm.kv_int8 = tm.kv_int8 = kv_int8
+    return jm, tm
+
+
+def greedy_params(module, frames: int, **kw):
+    """``module.GenerationParams`` (either package's ``generate``) for
+    ``frames`` greedy frames: EOS banned at every token (the last is the
+    (frames + 1)-th), so a row runs to its budget, frames + 1, and the
+    budget trim keeps ``frames``. ``kw`` overrides."""
+    return module.GenerationParams(**{**dict(
+        max_new_tokens=frames + 1, min_new_tokens=frames + 2, do_sample=False,
+        subtalker_do_sample=False, repetition_penalty=1.0), **kw})
+
+
+def jax_solo_codes(jm, ids, frames: int, *, speaker="aiden", language="english",
+                   ceiling: int = SERVING_CEILING, **prompt_kw):
+    """The JAX package's greedy codes [frames, G] for one request alone,
+    through ``generate_codes_from_prompts`` at an engine's ceiling and the
+    default prefill bucket (a budget of frames + 1, EOS banned)."""
+    import dataclasses
+
+    from qwen_tts_tpu import generate as j_generate
+
+    prompt = j_generate.build_prompt(jm.talker_params, jm.cfg, np.asarray(ids, np.int32),
+                                     language=language, speaker=speaker,
+                                     st_params=jm.subtalker_params, **prompt_kw)
+    params = dataclasses.replace(greedy_params(j_generate, ceiling), max_new_tokens=ceiling)
+    codes, _ = jm.generate_codes_from_prompts(
+        [prompt], params, step_limit=[frames + 1], max_new_ceiling=ceiling, trailing_bucket=16)
+    assert codes[0].shape[0] == frames
+    return np.asarray(codes[0], np.int64)
+
+
+class DecodedCodes:
+    """Records every code array a model's ``decode_codes`` is given (the
+    engines' finished requests, from their worker threads), in order."""
+
+    def __init__(self, model):
+        self.model, self.codes = model, []
+        self._orig = model.decode_codes
+
+    def __enter__(self) -> list:
+        def recording(codes_list, **kw):
+            self.codes.extend(np.asarray(c, np.int64).copy() for c in codes_list)
+            return self._orig(codes_list, **kw)
+
+        self.model.decode_codes = recording
+        return self.codes
+
+    def __exit__(self, *exc) -> None:
+        del self.model.decode_codes
