@@ -27,11 +27,16 @@ Phases, each of which exits non-zero on failure:
    SnakeBeta instructions of the built kernel's SASS beside bytes and
    tensor-core operations; the int8 GEMM's launches are timed over 20
    layers' weights beside the same products as single launches, the cast +
-   cuBLAS route and torch._weight_int8pack_mm, with a per-block timeline);
+   cuBLAS route and torch._weight_int8pack_mm, with a per-block timeline;
+   its check also takes the sub-talker layer's launches, M 64 (the Jacobi
+   forward's B x G) and the fused q|k|v and gate|up weights as one launch
+   each, bit for bit the grouped launch);
 3b. batch invariance: a row's bits alone and among others, on the card:
    decode attention (both caches; B 1/4/32; S_max 97 and 2080; moved by
    left padding), the micro-step (B 1/4/32) and the int8 GEMM's grouped and
-   single launches (M 1/4/32);
+   single launches (M 1/4/32); then, reported and not held, the plain bf16
+   ops around them (the talker's LM head, the text projection, rms_norm,
+   the sub-talker's f32 head product) at M 1/4/8/32;
 4. path: writes a random-weight checkpoint at the flagship 12 Hz dims,
    loads it with ``Qwen3TTSModel.from_pretrained`` and runs
    ``generate_custom_voice`` for a batch of 4 (talker bf16, codec f32,
@@ -56,7 +61,9 @@ Phases, each of which exits non-zero on failure:
    of the batch of 4 (reported as rows equal / 4); timed as phase 4;
 7. serving parity: phase 5 with int8 weights (``quantize_for_serving(
    talker=True)``, codes equal), then with the int8 KV cache as well
-   (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``);
+   (``kv=True``), compared teacher-forced (see ``KV_INT8_LOGIT_RTOL``), then
+   so again with the sub-talker's cache int8 too (``QTTS_ST_KV8=1``: its
+   micro-decode layer by layer through the int8-cache attention kernel);
 8. bf16 codec: ``from_pretrained(codec_dtype=torch.bfloat16)`` and
    ``decode_codes`` of the path phase's codes; the fused vocoder-block kernel
    must launch twice per codec call (blocks 2 and 3) and the whole decode,
@@ -75,7 +82,8 @@ Phases, each of which exits non-zero on failure:
    stage by stage (CUDA events);
 10. graphs: the replayed decode against the eager frame loop, each through
    the module's own function, bit for bit (codes, buffer, state): bf16,
-   serving and serving + int8 KV at B=4 and MAX_NEW frames, with EOS banned
+   serving and serving + int8 KV at B=4 and GRAPH_FRAMES frames, the talker
+   cut to its first GRAPH_TALKER_LAYERS layers, with EOS banned
    and with EOS allowed (rows stop at different frames, frames run past the
    last row's end); sampled, one seed twice identical, another seed
    different, graph == eager; the B=1 first packet one graph replay, codes
@@ -105,7 +113,9 @@ Phases, each of which exits non-zero on failure:
    codes of the four clips agree at >= ``CLONE_CODE_AGREEMENT`` with
    near-ties only, the x-vectors within ``CLONE_XVEC_REL_L2``, and greedy
    clone codes from the card's prompt saved as a ``.pt`` voice file and
-   loaded are equal;
+   loaded are equal; ``Qwen3TTSTokenizer`` on the Base checkpoint's speech
+   tokenizer: its encode gives the prompt's Mimi codes and its decode the
+   model's ``decode_codes``, bit for bit;
 12. serving: the engines on the same checkpoint in the serving mode (int8
    weights and KV cache), f32 codec, EOS banned, greedy unless stated. The
    continuous engine (8 slots, 25-frame segments, ceiling 96, prefill
@@ -128,7 +138,14 @@ Phases, each of which exits non-zero on failure:
    /healthz, /tts (a 24 kHz WAV of its length), /stream (de-chunked PCM16 of
    its length, the first chunk's latency over 3 streams); on the Base
    checkpoint (prefill buckets 32 and 96) a /clone_voice from inline PCM,
-   taken while another request decodes, and a /tts in that voice.
+   taken while another request decodes, and a /tts in that voice;
+13. fast modes (``phase_fast_modes``): fused trunk projections (bf16 and
+   the serving mode), the Jacobi sub-talker (B 4 and 8), the sub-talker int8
+   KV cache and the sub-talker's gates in the captured programs' keys, on
+   the same checkpoint: codes against the routes they replace (near ties
+   allowed), launches exact, the captured Jacobi frame against the eager
+   adaptive loop bit for bit, ms a frame, one capture per gate flip, and
+   ``QTTS_ST_SPLIT`` bit-identical.
 
 Each phase logs its seconds (``time: ...``). The line before the last holds
 the kernels' JSON records; the last line is ``{"ok": true, "device": {...}}``.
@@ -679,6 +696,7 @@ ATTN_LONG_SHAPES = ((4, 1056), (4, 2080), (32, 1056), (32, 2080))  # (B, cur_len
 # timing rotates over one cache per talker layer, as the path does.
 ATTN_ROTATE = 20
 ATTN_TALKER = (16, 2, 64)  # H, KV, hd
+ATTN_SUBTALKER = (16, 8, 128)  # H, KV, hd; S_max G = 16, or G/2 under QTTS_ST_SPLIT
 # The bf16 path's profile (profile_decode: 9 steps): S_max 32 + 9, prompts of
 # 9-10 rows left-padded into the 32-slot bucket, cur_len 33..41 over the steps.
 ATTN_PROFILE_S_MAX = 41
@@ -791,8 +809,9 @@ def hold_attention_at(gen, shape, int8: bool, label: str, rows=()) -> float:
     """decode_attention (float cache) or decode_attention_int8 against its
     plain version at one cache shape ``(H, KV, hd, S_max)``: B 1 and 4, bf16
     and f32 queries, no window and a window of 13, rows ending 3 apart below
-    S_max with left pads 5 apart; then each ``(cur_len, valid_from)`` of
-    ``rows`` (B = their length) at both dtypes. Returns the largest error."""
+    S_max (at least 1) with left pads 5 apart; then each ``(cur_len,
+    valid_from)`` of ``rows`` (B = their length) at both dtypes. Returns the
+    largest error."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda import decode_attention as da
@@ -802,7 +821,7 @@ def hold_attention_at(gen, shape, int8: bool, label: str, rows=()) -> float:
     kernel, plain = getattr(da, name), getattr(da, name + "_plain")
     cases = []
     for b in (1, 4):
-        cur_len = [s_max - 3 * i for i in range(b)]
+        cur_len = [max(s_max - 3 * i, 1) for i in range(b)]
         cases.append((cur_len, [min(5 * i, cl - 1) for i, cl in enumerate(cur_len)]))
     worst = 0.0
     for cur_len, valid_from in [*cases, *rows]:
@@ -822,6 +841,21 @@ def hold_attention_at(gen, shape, int8: bool, label: str, rows=()) -> float:
                     f"S_max={s_max} n_split={_n_split(s_max)} window={window} cur_len "
                     f"{cur_len} valid_from {valid_from}"))
     return worst
+
+
+def micro_rows(s_max: int, b: int = 4) -> list:
+    """The sub-talker micro-decode's rows over a cache of ``s_max`` slots:
+    cur_len pos + 1 for every position, no left pad, B = ``b``."""
+    return [([c] * b, [0] * b) for c in range(1, s_max + 1)]
+
+
+def hold_subtalker_attention(gen, int8: bool) -> float:
+    """The kernel at the sub-talker's heads, as the micro-decode launches it:
+    S_max G = 16 (the layer-by-layer routes) and G/2 = 8 (``QTTS_ST_SPLIT``'s
+    first half), every cur_len, against its plain version. Returns the
+    largest error."""
+    return max(hold_attention_at(gen, (*ATTN_SUBTALKER, s), int8, "subtalker", micro_rows(s))
+               for s in (16, 8))
 
 
 def check_long_attention(gen, int8: bool) -> float:
@@ -909,8 +943,9 @@ def phase_kernels_decode_attention(talker_s_max: int):
         decode_attention, decode_attention_plain)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    shapes = {"talker": (*ATTN_TALKER, talker_s_max), "subtalker": (16, 8, 128, 16)}
-    worst = max(hold_attention_at(gen, shape, False, name) for name, shape in shapes.items())
+    shapes = {"talker": (*ATTN_TALKER, talker_s_max), "subtalker": (*ATTN_SUBTALKER, 16)}
+    worst = max(hold_attention_at(gen, shapes["talker"], False, "talker"),
+                hold_subtalker_attention(gen, int8=False))
     worst = max(worst, check_long_attention(gen, int8=False))
 
     records = {}
@@ -953,9 +988,10 @@ def time_profile_attention(gen):
 
 
 def phase_kernels_int8_attention(s_max: int):
-    """decode_attention_int8 against its plain version at the talker shape
-    (the only path that runs it) and the long talker caches, then timed at
-    the talker shape and the long shapes."""
+    """decode_attention_int8 against its plain version at the talker shape,
+    at the sub-talker's (the ``QTTS_ST_KV8`` route's micro-decode) and on
+    the long talker caches, then timed at the talker shape and the long
+    shapes."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
@@ -963,7 +999,8 @@ def phase_kernels_int8_attention(s_max: int):
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     h, kv, hd = ATTN_TALKER
-    worst = hold_attention_at(gen, (h, kv, hd, s_max), True, "talker")
+    worst = max(hold_attention_at(gen, (h, kv, hd, s_max), True, "talker"),
+                hold_subtalker_attention(gen, int8=True))
     worst = max(worst, check_long_attention(gen, int8=True))
 
     b = 4
@@ -1641,6 +1678,13 @@ TALKER_PROJECTIONS = (("wq", 1024, 1024), ("wk", 1024, 128), ("wv", 1024, 128),
                       ("wo", 1024, 1024), ("gate", 1024, 2048), ("up", 1024, 2048),
                       ("down", 2048, 1024))
 LM_HEAD = (1024, 2048)
+# The sub-talker layer's projections (the Jacobi forward and the sub-talker
+# int8 KV route run them through the int8 GEMM at M = B x G and B).
+SUBTALKER_PROJECTIONS = (("wq", 1024, 2048), ("wk", 1024, 1024), ("wv", 1024, 1024),
+                         ("wo", 2048, 1024), ("gate", 1024, 3072), ("up", 1024, 3072),
+                         ("down", 3072, 1024))
+# The fused weights of fuse_trunk_params: one launch each.
+FUSED_LAUNCHES = (("wqkv", ("wq", "wk", "wv")), ("wgu", ("gate", "up")))
 # A talker layer's int8 GEMM launches: the projections that read one x are
 # one launch.
 LAYER_LAUNCHES = (("qkv", ("wq", "wk", "wv")), ("o", ("wo",)), ("gate_up", ("gate", "up")),
@@ -1653,14 +1697,15 @@ INT8_MATMUL_TOL = {"float32": 1e-5, "bfloat16": 2 ** -6}
 INT8_ROTATE = 20
 
 
-def _int8_layers(gen, count: int):
-    """``count`` talker layers' int8 weights, {name: (w_i8 [K, N], s)}."""
+def _int8_layers(gen, count: int, projections=TALKER_PROJECTIONS):
+    """``count`` layers' int8 weights (the talker's unless ``projections``
+    says), {name: (w_i8 [K, N], s)}."""
     import torch
 
     from qwen_tts_tpu_torch.models.trunk import quantize_int8
 
     return [{name: quantize_int8(torch.randn(k, n, generator=gen, device="cuda") / k ** 0.5)
-             for name, k, n in TALKER_PROJECTIONS} for _ in range(count)]
+             for name, k, n in projections} for _ in range(count)]
 
 
 def _int8_bytes(x, weights, f32_out: bool) -> int:
@@ -1705,11 +1750,15 @@ def _median_breakdown(parts) -> dict:
     return out
 
 
-def check_int8_matmul(layers, head) -> float:
-    """Grouped and single launches at the talker's launches and the LM
-    head's, M 1/4/32/128, f32 and bf16: one launch counted per call; each
+def check_int8_matmul(layers, head, sub_layer) -> float:
+    """Grouped and single launches at the talker layer's launches, the LM
+    head's and the sub-talker layer's, M 1/4/32/64/128 (64: the Jacobi
+    forward's B x G at B=4), f32 and bf16: one launch counted per call; each
     grouped output the bits of its single launch; each within
-    INT8_MATMUL_TOL of the plain version. Returns the largest error."""
+    INT8_MATMUL_TOL of the plain version. Then the fused weights of both
+    layers (q|k|v and gate|up concatenated, as fuse_trunk_params makes them)
+    as single launches: the bits of the grouped launch. Returns the largest
+    error."""
     import torch
 
     from qwen_tts_tpu_torch.ops.cuda.int8_matmul import (
@@ -1717,10 +1766,12 @@ def check_int8_matmul(layers, head) -> float:
 
     gen = torch.Generator(device="cuda").manual_seed(16)
     worst = 0.0
-    launches = [(kind, [layers[0][n] for n in names], False) for kind, names in LAYER_LAUNCHES]
+    launches = [(f"{who} {kind}", [layer[n] for n in names], False)
+                for who, layer in (("talker", layers[0]), ("sub-talker", sub_layer))
+                for kind, names in LAYER_LAUNCHES]
     for kind, weights, f32_out in launches + [("lm_head", [head], True)]:
         k = weights[0][0].shape[0]
-        for m in (1, 4, 32, 128):
+        for m in (1, 4, 32, 64, 128):
             for dtype in (torch.float32, torch.bfloat16):
                 x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
                 before = int8_matmul.launches
@@ -1747,6 +1798,24 @@ def check_int8_matmul(layers, head) -> float:
                 if not same:
                     fail(f"int8_matmul {kind} M={m} {dtype}: a grouped output differs from its "
                          f"single launch")
+    fused = []
+    for who, layer in (("talker", layers[0]), ("sub-talker", sub_layer)):
+        for key, names in FUSED_LAUNCHES:
+            weights = [layer[n] for n in names]
+            w = torch.cat([w for w, _ in weights], dim=1)
+            s = torch.cat([s for _, s in weights], dim=1)
+            for m in (1, 4, 32, 64, 128):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(m, w.shape[0], generator=gen, device="cuda").to(dtype)
+                    fused.append(torch.equal(int8_matmul(x, w, s),
+                                             torch.cat(int8_matmul_group(x, weights), dim=1)))
+    torch.cuda.synchronize()
+    log(f"kernel check: int8_matmul fused q|k|v (N {TALKER_PROJECTIONS[0][2] + 2 * 128} / "
+        f"4096) and gate|up (N 4096 / 6144) of the talker and sub-talker layers, M "
+        f"1/4/32/64/128, f32 and bf16: one launch == the grouped launch, bit for bit, in "
+        f"{sum(fused)} / {len(fused)}")
+    if not all(fused):
+        fail("int8_matmul: a fused weight's launch differs from the grouped launch")
     return worst
 
 
@@ -1874,7 +1943,8 @@ def phase_kernels_int8_matmul():
 
     heads = [quantize_int8(torch.randn(*LM_HEAD, generator=gen, device="cuda") / LM_HEAD[0] ** 0.5)
              for _ in range(INT8_ROTATE)]
-    worst = check_int8_matmul(layers, heads[0])
+    worst = check_int8_matmul(layers, heads[0],
+                              _int8_layers(gen, 1, SUBTALKER_PROJECTIONS)[0])
     timelines = {f"{kind}@{m}": int8_timeline(layers, kind, names, m)
                  for kind, names, m in (("wq", ("wq",), 4), ("qkv", ("wq", "wk", "wv"), 4),
                                         ("wq", ("wq",), 128))}
@@ -1924,7 +1994,8 @@ def phase_batch_invariance():
     decode_attention (float and int8 caches) at B 1/4/32, S_max 97 and 2080,
     moved by left padding; subtalker_step at B 1/4/32 (f32 and bf16);
     int8_matmul at M 1/4/32 (the talker layer's launches, grouped as the path
-    groups them, and the LM head; f32 and bf16)."""
+    groups them, and the LM head; f32 and bf16). Then the plain ops around
+    them, reported (``check_plain_ops_invariance``, returned)."""
     import torch
 
     from qwen_tts_tpu_torch.models.trunk import quantize_int8
@@ -2001,6 +2072,45 @@ def phase_batch_invariance():
     log(f"batch invariance: int8_matmul rows at M 1/4/32, the talker layer's 4 launches "
         f"(q|k|v and gate|up grouped) and the LM head, f32 and bf16: the same bits; {checks} "
         f"checks in all pass")
+    return check_plain_ops_invariance()
+
+
+def check_plain_ops_invariance() -> dict:
+    """The plain bf16 ops around the kernels at the flagship widths (random
+    weights): the talker's LM head, the text projection, ``rms_norm`` and the
+    sub-talker's f32 head product. For M 1/4/8/32, rows 0 and M-1 computed
+    alone against the same rows in the batch of M, bitwise. Reported, not
+    held: a difference is a fault of the port for a later PR. Returns {op:
+    {M: the same bits}}."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.talker import text_project
+    from qwen_tts_tpu_torch.ops.norms import rms_norm
+
+    tk = flagship_config().talker
+    cp = tk.code_predictor
+    d, td = tk.hidden_size, tk.text_hidden_size
+    gen = torch.Generator(device="cuda").manual_seed(23)
+
+    def w(*shape):
+        return (torch.randn(*shape, generator=gen, device="cuda") / shape[0] ** 0.5).bfloat16()
+
+    head, st_head = w(d, tk.vocab_size), w(cp.hidden_size, cp.vocab_size)
+    text = {"text_proj_fc1": w(td, td), "text_proj_fc1_b": w(td), "text_proj_fc2": w(td, d),
+            "text_proj_fc2_b": w(d)}
+    norm = (1 + 0.1 * torch.randn(d, generator=gen, device="cuda")).bfloat16()
+    ops = {"talker LM head": (d, lambda x: (x @ head).float()),
+           "text projection": (td, lambda x: text_project(text, x)),
+           "rms_norm": (d, lambda x: rms_norm(x, norm, tk.rms_norm_eps)),
+           "sub-talker f32 head": (cp.hidden_size, lambda x: (x @ st_head).float())}
+    results = {}
+    for name, (k, fn) in ops.items():
+        x = torch.randn(32, k, generator=gen, device="cuda").bfloat16()
+        results[name] = {m: all(torch.equal(fn(x[r:r + 1]), fn(x[:m])[r:r + 1])
+                                for r in sorted({0, m - 1})) for m in (1, 4, 8, 32)}
+        log(f"batch invariance (plain ops, reported): {name} [M, {k}] bf16: rows 0 and M-1 "
+            f"alone == in the batch of M: {results[name]}")
+    return results
 
 
 def check_serving_rows_alone(model, smi: str) -> None:
@@ -2356,8 +2466,8 @@ def _greedy_codes(model, device, texts, speakers, kw, forced=None):
     calls, caches = [], []
     originals = (gen_mod.sample_token, st_mod.sample_token, gen_mod.talker_mod.alloc_kv_cache)
 
-    def recording(logits, cfg, generator, _orig=originals[0]):
-        token = _orig(logits, cfg, generator)
+    def recording(logits, cfg, generator, race=None, _orig=originals[0]):
+        token = _orig(logits, cfg, generator, race)
         calls.append((logits.float().cpu(), token.cpu()))
         if forced is not None:
             token = forced[len(calls) - 1][1].to(token.device)
@@ -2416,8 +2526,10 @@ def phase_parity(model_dir: str, mode: str = "float"):
     (phase 5) and "int8" (phase 7, ``quantize_for_serving(talker=True)``):
     the free-running codes must be equal. "int8+kv" (phase 7,
     ``quantize_for_serving(talker=True, kv=True)``): compared teacher-forced,
-    as ``KV_INT8_LOGIT_RTOL`` says. Every mode logs how far the logits of a
-    teacher-forced CPU run lie from the card's."""
+    as ``KV_INT8_LOGIT_RTOL`` says; "int8+kv+st-kv8" the same, run under
+    ``QTTS_ST_KV8=1`` (set by the caller), so that every position of the
+    sub-talker's int8-cache route is compared. Every mode logs how far the
+    logits of a teacher-forced CPU run lie from the card's."""
     import numpy as np
     import torch
 
@@ -2432,7 +2544,7 @@ def phase_parity(model_dir: str, mode: str = "float"):
         model = Qwen3TTSModel.from_pretrained(model_dir, talker_dtype=torch.float32,
                                               device=device, load_tokenizer=False)
         if mode != "float":
-            model.quantize_for_serving(talker=True, kv=mode == "int8+kv")
+            model.quantize_for_serving(talker=True, kv=mode.startswith("int8+kv"))
         model.tokenizer = ChatTemplateTokenizer()
         models[device] = model
     splits = _attention_splits()
@@ -2466,7 +2578,7 @@ def phase_parity(model_dir: str, mode: str = "float"):
         f"logit margin {_min_margin(card_calls):.3g} (card), {_min_margin(cpu_calls):.3g} "
         f"(CPU); teacher-forced over {len(card_calls)} sampling calls: max |logit card - CPU| "
         f"{worst:.3g}, largest |logit| {scale:.3g}")
-    if mode != "int8+kv":
+    if not mode.startswith("int8+kv"):
         if not equal:
             fail(f"{name}: card and CPU greedy codes differ at (row, frame, group) "
                  f"{np.argwhere(a != b)[:5].tolist()}")
@@ -2841,9 +2953,16 @@ def _eos_token(codes0, limits) -> int:
     return best
 
 
+# The graphs phase's depth: the talker's first GRAPH_TALKER_LAYERS layers
+# (the sub-talker whole: its micro-step kernel is built for 5), GRAPH_FRAMES
+# frames a run (four flag reads). Its checks are of the frame's capture and
+# replay against the same frames run eagerly, which need neither the
+# talker's full depth nor a long run; the path phases run both.
+GRAPH_TALKER_LAYERS = 4
+GRAPH_FRAMES = 33
 # Per-row frame budgets of the graphs phase's EOS run: every row ends
-# before MAX_NEW, the last of them off a flag read (61 = 7 x 8 + 5).
-EOS_RUN_LIMITS = (61, 53, 45, 37)
+# before GRAPH_FRAMES, the last of them off a flag read (29 = 3 x 8 + 5).
+EOS_RUN_LIMITS = (29, 25, 21, 17)
 
 
 def _segment(model, inputs, gp, eager: bool, seed=None, limits=None, frames=MAX_NEW,
@@ -2895,22 +3014,24 @@ GRAPH_MODES = {"bf16": "bf16 weights and KV cache",
 
 
 def time_replayed_frames(model, inputs, gp, mode: str, smi: str, runs: int = 5) -> dict:
-    """The replayed decode segment (B=4, MAX_NEW frames, prefill outside)
-    timed ``runs`` times: ms a frame, median (min..max); then one profiled
-    replay: device busy time a frame and the int8 GEMM's share of it."""
+    """The replayed decode segment (B=4, GRAPH_FRAMES frames, prefill
+    outside) timed ``runs`` times: ms a frame, median (min..max); then one
+    profiled replay: device busy time a frame and the int8 GEMM's share of
+    it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ms = [_segment(model, inputs, gp, eager=False)[2] / MAX_NEW * 1e3 for _ in range(runs)]
-    prof = _segment(model, inputs, gp, eager=False, profiler=lambda: profile(
+    n = GRAPH_FRAMES
+    ms = [_segment(model, inputs, gp, eager=False, frames=n)[2] / n * 1e3 for _ in range(runs)]
+    prof = _segment(model, inputs, gp, eager=False, frames=n, profiler=lambda: profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))[3]
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in device) / 1e3 / MAX_NEW
+    busy = sum(e.self_device_time_total for e in device) / 1e3 / n
     int8 = [e for e in device if "int8_matmul_kernel" in e.key]
-    int8_ms = sum(e.self_device_time_total for e in int8) / 1e3 / MAX_NEW
-    launches = sum(e.count for e in int8) / MAX_NEW
-    kernels = sum(e.count for e in device) / MAX_NEW
-    log(f"graphs [{mode}]: {GRAPH_MODES[mode]}: replayed decode B=4, {MAX_NEW} frames "
+    int8_ms = sum(e.self_device_time_total for e in int8) / 1e3 / n
+    launches = sum(e.count for e in int8) / n
+    kernels = sum(e.count for e in device) / n
+    log(f"graphs [{mode}]: {GRAPH_MODES[mode]}: replayed decode B=4, {n} frames "
         f"(prefill outside), {runs} runs: "
         f"{_spread(ms)} ms/frame; one profiled replay: device busy {busy:.3f} ms/frame in "
         f"{kernels:.1f} device ops/frame, int8_matmul {int8_ms:.4f} ms/frame in {launches:.1f} "
@@ -2918,10 +3039,20 @@ def time_replayed_frames(model, inputs, gp, mode: str, smi: str, runs: int = 5) 
     return {"ms": ms, "busy_ms": busy, "int8_ms": int8_ms}
 
 
+def cut_talker_depth(model, layers: int) -> None:
+    """The model's talker cut to its first ``layers`` layers, in place."""
+    tk = model.cfg.talker
+    model.cfg = dataclasses.replace(model.cfg, talker=dataclasses.replace(
+        tk, num_hidden_layers=layers))
+    model.talker_params = dict(model.talker_params, trunk={
+        k: v[:layers] for k, v in model.talker_params["trunk"].items()})
+
+
 def phase_graphs(model_dir: str, smi: str) -> None:
     """Phase 10: the replayed decode against the eager frame loop on the
     card, each through the module's own function (``_decode``,
-    ``_decode_eager``), B=4 at the path's prompts, MAX_NEW frames: bf16,
+    ``_decode_eager``), B=4 at the path's prompts, GRAPH_FRAMES frames at a
+    talker of GRAPH_TALKER_LAYERS layers: bf16,
     serving and serving + int8 KV, greedy with EOS banned and with EOS
     allowed (the talker's EOS column set to 1.01 x the column of a token the
     rows first choose at different frames, so rows stop at different frames
@@ -2936,9 +3067,11 @@ def phase_graphs(model_dir: str, smi: str) -> None:
 
     speakers = ["aiden", "serena", "aiden", "serena"]
     languages = ["english", "auto", "chinese", "english"]
+    n = GRAPH_FRAMES
     for mode in GRAPH_MODES:
         model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
                                               load_tokenizer=False)
+        cut_talker_depth(model, GRAPH_TALKER_LAYERS)
         if mode != "bf16":
             model.quantize_for_serving(talker=True, kv=mode == "serving+kv")
         model.tokenizer = ChatTemplateTokenizer()
@@ -2952,13 +3085,14 @@ def phase_graphs(model_dir: str, smi: str) -> None:
         banned = model._merge_params(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1,
                                      do_sample=False, subtalker_dosample=False,
                                      repetition_penalty=1.0)
-        graph = _segment(model, inputs, banned, eager=False)
-        eager = _segment(model, inputs, banned, eager=True)
+        graph = _segment(model, inputs, banned, eager=False, frames=n)
+        eager = _segment(model, inputs, banned, eager=True, frames=n)
         same = _same_decode(graph, eager)
-        log(f"graphs [{mode}]: B=4, {MAX_NEW} frames, greedy, EOS banned: replayed == eager "
-            f"(buffer, token, hidden, presence, eos, num_gen bit for bit): {same}; num_gen "
-            f"{graph[0].num_gen.tolist()}; frames {graph[2] / MAX_NEW * 1e3:.2f} ms each "
-            f"replayed, {eager[2] / MAX_NEW * 1e3:.2f} eager (one run each) | {smi}")
+        log(f"graphs [{mode}]: B=4, {n} frames, talker {GRAPH_TALKER_LAYERS} layers, greedy, "
+            f"EOS banned: replayed == eager (buffer, token, hidden, presence, eos, num_gen bit "
+            f"for bit): {same}; num_gen {graph[0].num_gen.tolist()}; frames "
+            f"{graph[2] / n * 1e3:.2f} ms each replayed, {eager[2] / n * 1e3:.2f} eager (one "
+            f"run each) | {smi}")
         if not same:
             fail(f"graphs [{mode}]: the replayed decode differs from the eager loop")
         time_replayed_frames(model, inputs, banned, mode, smi)
@@ -2969,12 +3103,12 @@ def phase_graphs(model_dir: str, smi: str) -> None:
         head[:, eos] = head[:, x] * 1.01
         model.talker_params = dict(model.talker_params, codec_head=head)
         allowed = dataclasses.replace(banned, min_new_tokens=0)
-        graph = _segment(model, inputs, allowed, eager=False, limits=EOS_RUN_LIMITS)
-        eager = _segment(model, inputs, allowed, eager=True, limits=EOS_RUN_LIMITS)
+        graph = _segment(model, inputs, allowed, eager=False, limits=EOS_RUN_LIMITS, frames=n)
+        eager = _segment(model, inputs, allowed, eager=True, limits=EOS_RUN_LIMITS, frames=n)
         same = _same_decode(graph, eager)
         num_gen = graph[0].num_gen.tolist()
         done = max(num_gen)
-        ran = replays(MAX_NEW, done)
+        ran = replays(n, done)
         log(f"graphs [{mode}]: EOS allowed (EOS column = 1.01 x token {x}'s), budgets "
             f"{list(EOS_RUN_LIMITS)}: rows stop "
             f"after {num_gen} frames (EOS {graph[0].eos.tolist()}), the loop replays {ran} "
@@ -2986,8 +3120,9 @@ def phase_graphs(model_dir: str, smi: str) -> None:
 
         if mode == "bf16":
             sampled = model._merge_params(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1)
-            runs = [_segment(model, inputs, sampled, eager=False, seed=s) for s in (0, 0, 1)]
-            eager = _segment(model, inputs, sampled, eager=True, seed=0)
+            runs = [_segment(model, inputs, sampled, eager=False, seed=s, frames=n)
+                    for s in (0, 0, 1)]
+            eager = _segment(model, inputs, sampled, eager=True, seed=0, frames=n)
             twice = _same_decode(runs[0], runs[1])
             other = not torch.equal(runs[0][1], runs[2][1])
             vs_eager = _same_decode(runs[0], eager)
@@ -3267,6 +3402,36 @@ def hold_clone_attention(bucket: int, lengths) -> dict:
             for name, int8 in (("decode_attention", False), ("decode_attention_int8", True))}
 
 
+def check_tokenizer(base_dir: str, clips, ref_codes, model, codes, smi: str) -> None:
+    """``Qwen3TTSTokenizer`` on the Base checkpoint's speech tokenizer (f32,
+    on the card): ``encode`` of the clips gives the clone prompt's Mimi codes
+    and ``decode`` of ``codes`` the model's ``decode_codes``, bit for bit."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch.tokenizer import Qwen3TTSTokenizer
+
+    t0 = time.perf_counter()
+    tok = Qwen3TTSTokenizer.from_pretrained(os.path.join(base_dir, "speech_tokenizer"))
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    encoded = tok.encode(clips)
+    encode_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wavs, sr = tok.decode({"audio_codes": codes})
+    decode_s = time.perf_counter() - t0
+    want = model.decode_codes(codes)
+    same_codes = [np.array_equal(a, b) for a, b in zip(encoded["audio_codes"], ref_codes)]
+    same_wavs = [np.array_equal(a, b) for a, b in zip(wavs, want)]
+    log(f"clone tokenizer: Qwen3TTSTokenizer ({tok.get_model_type()}, on {tok.device}) read in "
+        f"{load_s:.1f} s; encode of the {len(clips)} clips in {encode_s:.2f} s (the Mimi "
+        f"encoder read at first use): the prompt's codes {same_codes}; decode of "
+        f"{[c.shape[0] for c in codes]} frames at {sr} Hz in {decode_s:.2f} s: "
+        f"decode_codes' bits {same_wavs} | {smi}")
+    if not (all(same_codes) and all(same_wavs) and len(same_codes) == len(clips)
+            and len(same_wavs) == len(codes)):
+        fail("clone: the tokenizer's encode or decode differs from the model's")
+
+
 def phase_clone(base_dir: str, smi: str) -> dict:
     """Voice clone at the flagship dims (phase 11) on a Base checkpoint: the
     published ECAPA-TDNN and Mimi encoder widths. Prompts from four ragged
@@ -3365,6 +3530,7 @@ def phase_clone(base_dir: str, smi: str) -> dict:
     log(f"clone: x-vector-only prompt broadcast over {len(xw)} texts: {len(xw)} waveforms of "
         f"{FRAMES * up} samples")
     merged = [np.concatenate([rc, c], axis=0) for rc, c in zip(prompt["ref_code"], codes)]
+    check_tokenizer(base_dir, clips, prompt["ref_code"], model, merged, smi)
 
     # The serving mode on the same prompts.
     model.quantize_for_serving(talker=True, kv=True)
@@ -3557,9 +3723,9 @@ def solo_margin(model, request, frame: int, group: int):
     calls = []
     originals = (gen_mod.sample_token, st_mod.sample_token)
 
-    def recording(logits, cfg, generator, _orig=originals[0]):
+    def recording(logits, cfg, generator, race=None, _orig=originals[0]):
         calls.append(logits[0].float().cpu())
-        return _orig(logits, cfg, generator)
+        return _orig(logits, cfg, generator, race)
 
     gen_mod.sample_token = st_mod.sample_token = recording
     try:
@@ -3950,6 +4116,419 @@ def phase_serving(model_dir: str, base_dir: str, smi: str) -> dict:
     return {"launches": launches, "attention_err": attention_err}
 
 
+# --------------------------------------------------------------------------
+# Phase 13: the serving fast modes
+# --------------------------------------------------------------------------
+
+# The fast-modes phase decodes this many frames a run (two flag reads), in a
+# cache of MAX_NEW frames.
+FAST_FRAMES = 16
+FAST_VOICES = (("aiden", "english"), ("serena", "auto"), ("aiden", "chinese"),
+               ("serena", "english"))
+# Kernel names of cuBLAS's and CUTLASS's GEMMs in a profile.
+GEMM_NAMES = ("gemm", "gemv", "nvjet", "xmma", "cutlass")
+
+
+@contextlib.contextmanager
+def st_gates(**env):
+    """The sub-talker's environment gates set as given (None: unset) inside,
+    restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+
+    def put(values):
+        for k, v in values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    put(env)
+    try:
+        yield
+    finally:
+        put(saved)
+
+
+@contextlib.contextmanager
+def recording_logits(calls: list):
+    """Every sampling call's f32 logits [B, V] appended to ``calls`` (kept on
+    the card), talker and sub-talker alike, in order."""
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch.models import subtalker as st_mod
+
+    originals = (gen_mod.sample_token, st_mod.sample_token)
+
+    def recording(logits, cfg, generator, race=None, _orig=originals[0]):
+        calls.append(logits.float().clone())
+        return _orig(logits, cfg, generator, race)
+
+    gen_mod.sample_token = st_mod.sample_token = recording
+    try:
+        yield
+    finally:
+        gen_mod.sample_token, st_mod.sample_token = originals
+
+
+def fast_inputs(model, b: int):
+    """A batch of ``b`` prompts (TEXTS in turn, FAST_VOICES' voices) as
+    ``_segment`` takes them."""
+    from qwen_tts_tpu_torch import generate as gen_mod
+
+    dtype = model.talker_params["norm"].dtype
+    prompts = [gen_mod.build_prompt(model.talker_params, model.cfg,
+                                    model._tokenize(model.build_assistant_text(TEXTS[i % 4])),
+                                    speaker=FAST_VOICES[i % 4][0],
+                                    language=FAST_VOICES[i % 4][1])
+               for i in range(b)]
+    e, m, t, _ = gen_mod.batch_prompts(prompts)
+    return e.to(dtype), m, t.to(dtype)
+
+
+def recorded_reference(model, inputs, gp):
+    """An eager sequential run, prefill included, with every sampling call's
+    logits: (state, codes [B, FAST_FRAMES, G], calls). Code (f, g) came from
+    call f x G + g: the prefill's token, then per frame the sub-talker's G - 1
+    codes and the talker's next token."""
+    calls = []
+    with recording_logits(calls):
+        state, buf, _, _ = _segment(model, inputs, gp, eager=True, frames=FAST_FRAMES)
+    return state, buf, calls
+
+
+def hold_near_ties(what: str, got, ref) -> float:
+    """Codes [B, frames, G] against a recorded reference run's: each row
+    equal, or first apart where the reference's top two logits lie within
+    SERVING_NEAR_TIE of that call's largest |logit|. Returns the share of
+    codes equal."""
+    import torch
+
+    _, want, calls = ref
+    g = want.shape[2]
+    equal, ties = 0, []
+    for row in range(want.shape[0]):
+        apart = (got[row] != want[row]).nonzero()
+        if not len(apart):
+            equal += 1
+            continue
+        f, grp = (int(v) for v in apart[0])
+        lg = calls[f * g + grp][row]
+        top2 = torch.topk(lg, 2).values
+        margin, scale = (top2[0] - top2[1]).item(), lg[lg > -1e8].abs().max().item()
+        ties.append((row, f, grp, round(margin, 5), round(scale, 3)))
+        if not margin <= SERVING_NEAR_TIE * scale:
+            fail(f"{what}: row {row} first differs at frame {f}, group {grp}, where the "
+                 f"reference's top-two margin {margin:.4g} is not a near tie (limit "
+                 f"{SERVING_NEAR_TIE} x {scale:.4g})")
+    share = (got == want).float().mean().item()
+    log(f"{what}: rows equal {equal} / {want.shape[0]}; codes equal share {share:.4f}; rows "
+        f"first apart at near ties (row, frame, group, margin, max|logit|): {ties}")
+    return share
+
+
+def fast_launches(model, inputs, gp, what: str, expected: dict):
+    """A replayed segment (its program captured before) with its kernel
+    launches, prefill included, held to ``expected`` exactly. Returns
+    (state, codes)."""
+    launches, (state, buf, _, _), _ = _launches_of(
+        lambda: _segment(model, inputs, gp, eager=False, frames=FAST_FRAMES))
+    log(f"fast modes [{what}]: launches in a replayed segment of {FAST_FRAMES} frames B="
+        f"{buf.shape[0]} (prefill included): {launches}, expected {expected}")
+    if launches != expected:
+        fail(f"fast modes [{what}]: the kernels did not launch as the route predicts")
+    return state, buf
+
+
+def time_programs(model, use, runs: dict, smi: str, rounds: int = 3) -> dict:
+    """Replayed segments of FAST_FRAMES frames, each of ``runs`` (name ->
+    (trees, inputs, gp, gates)) once untimed, then once a round in turns:
+    ms a frame, median (min..max). Returns the medians."""
+    ms = {name: [] for name in runs}
+    for i in range(rounds + 1):
+        for name in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            trees, inputs, gp, gates = runs[name]
+            use(trees)
+            with st_gates(**gates):
+                wall = _segment(model, inputs, gp, eager=False, frames=FAST_FRAMES)[2]
+            if i:
+                ms[name].append(wall / FAST_FRAMES * 1e3)
+    for name, values in ms.items():
+        log(f"fast modes time: {name}: replayed {_spread(values, '{:.3f}')} ms/frame over "
+            f"{rounds} segments of {FAST_FRAMES} frames | {smi}")
+    return {name: statistics.median(v) for name, v in ms.items()}
+
+
+def profile_gemms(model, inputs, gp, frames: int = 8) -> tuple:
+    """One profiled replayed segment: (GEMM kernels a frame, device ops a
+    frame); (None, None) if the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = _segment(model, inputs, gp, eager=False, frames=frames, profiler=lambda: profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))[3]
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None, None
+    gemms = sum(e.count for e in device if any(n in e.key.lower() for n in GEMM_NAMES))
+    return gemms / frames, sum(e.count for e in device) / frames
+
+
+def check_fused_int8_launches(trees: dict) -> None:
+    """Each fused int8 weight (``quantize_trunk_int8`` of the fused bf16
+    trees: layer 0 of the talker and of the sub-talker, q|k|v and gate|up) as
+    one launch, bit for bit the unfused trees' grouped launch, at M 4 (a
+    decode step), 64 and 128 (the Jacobi forward at B 4 and 8)."""
+    import torch
+
+    from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
+    from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_group
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    results = []
+    for who, idx in (("talker", 0), ("sub-talker", 1)):
+        fused, parts = (quantize_trunk_int8(trees[name][idx]["trunk"])
+                        for name in ("bf16 fused", "bf16"))
+        for key, names in (("wqkv", ("wq", "wk", "wv")), ("wgu", ("gate", "up"))):
+            k = fused[key + "_i8"].shape[1]
+            for m in (4, 64, 128):
+                x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+                one = int8_matmul(x, fused[key + "_i8"][0], fused[key + "_s"][0])
+                grouped = torch.cat(int8_matmul_group(
+                    x, [(parts[n + "_i8"][0], parts[n + "_s"][0]) for n in names]), dim=-1)
+                results.append((who, key, m, bool(torch.equal(one, grouped))))
+    log(f"fast modes: a fused int8_matmul launch == the grouped launch, bit for bit "
+        f"(who, weight, M, equal): {results}")
+    if not all(r[-1] for r in results):
+        fail("fast modes: a fused int8 launch differs from the grouped launch")
+
+
+def check_split_attention() -> None:
+    """The decode-attention kernel at the sub-talker's shapes (B=4, H16 /
+    KV8, hd 128) over a cache of G/2 = 8 slots and one of G = 16 that holds
+    the same first rows (other values past them): the same bits at every
+    cur_len <= 8, bf16 and int8 caches."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    same = []
+    for int8 in (False, True):
+        for cur in range(1, 9):
+            q, k, v, cl, vf = _attention_inputs(gen, 4, 16, 8, 128, 16, [cur] * 4, [0] * 4,
+                                                torch.float32)
+            k, v = _int8_caches(k, v) if int8 else (k.bfloat16(), v.bfloat16())
+            if int8:
+                half = tuple({n: c[n][:, :8].contiguous() for n in c} for c in (k, v))
+            else:
+                half = (k[:, :8].contiguous(), v[:, :8].contiguous())
+            full = decode_attention(q.bfloat16(), k, v, cl, vf)
+            same.append(bool(torch.equal(full, decode_attention(q.bfloat16(), *half, cl, vf))))
+    log(f"fast modes: QTTS_ST_SPLIT: decode attention at S_max 8 == at S_max 16 for cur_len "
+        f"1..8, bf16 then int8 caches: {same}")
+    if not all(same):
+        fail("fast modes: decode attention at S_max G/2 differs from S_max G, so the split "
+             "would not give the same bits")
+
+
+def phase_fast_modes(model_dir: str, smi: str) -> dict:
+    """Phase 13: the serving fast modes on the flagship checkpoint, greedy,
+    EOS banned, FAST_FRAMES frames a run (replayed unless stated).
+
+    Fused trunks (``fuse_trunk_params``): bf16 codes against the unfused
+    path (near ties allowed), ms a frame and GEMM kernels a frame; the
+    serving mode on fused trunks: codes against the unfused serving path,
+    launches exact, each fused int8 launch bit for bit the grouped one. The
+    Jacobi micro-decode in the serving mode (``QTTS_ST_JACOBI=1``): the
+    eager adaptive loop (its iteration histogram) and the captured G-1
+    frame give the same bits, at B 4 and 8; codes against the sequential
+    kernel route (near ties allowed); launches exact (no ``subtalker_step``);
+    ms a frame beside ``QTTS_ST_JACOBI_ITERS=1`` and the sequential frame.
+    The sub-talker int8 KV cache (``QTTS_ST_KV8=1``): launches exact, codes
+    against the bf16-cache route (near ties allowed; phase 7 holds every
+    position of it teacher-forced against the CPU), ms a frame. Every gate
+    flipped once: one capture each, none when flipped back;
+    ``QTTS_ST_SPLIT=1`` the same bits on both routes, and decode attention
+    at S_max G/2 the bits of S_max G; the bf16 frame's ms with the split."""
+    import torch
+
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch.models import subtalker as st_mod
+    from qwen_tts_tpu_torch.models.trunk import fuse_trunk_params
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    model = Qwen3TTSModel.from_pretrained(model_dir, load_tokenizer=False)
+    model.tokenizer = ChatTemplateTokenizer()
+    tk = model.cfg.talker
+    g, layers = tk.num_code_groups, tk.num_hidden_layers
+    st_layers = tk.code_predictor.num_hidden_layers
+    per_layer = len(LAYER_LAUNCHES)
+    gp = model._merge_params(max_new_tokens=MAX_NEW, min_new_tokens=MAX_NEW + 1,
+                             do_sample=False, subtalker_dosample=False, repetition_penalty=1.0)
+    tp, sp = model.talker_params, model.subtalker_params
+    trees = {"bf16": (tp, sp),
+             "bf16 fused": (dict(tp, trunk=fuse_trunk_params(tp["trunk"])),
+                            dict(sp, trunk=fuse_trunk_params(sp["trunk"])))}
+    for name in ("serving", "serving fused"):
+        model.talker_params, model.subtalker_params = trees[name.replace("serving", "bf16")]
+        model.quantize_for_serving(talker=True, kv=True)
+        trees[name] = (model.talker_params, model.subtalker_params)
+
+    def use(name):
+        model.talker_params, model.subtalker_params = trees[name]
+        model.kv_int8 = name.startswith("serving")
+
+    inputs, inputs8 = fast_inputs(model, 4), fast_inputs(model, 8)
+    out = {}
+    clock = [time.perf_counter()]
+
+    def lap(section: str) -> None:
+        now = time.perf_counter()
+        log(f"time: fast modes, {section} {now - clock[0]:.1f} s")
+        clock[0] = now
+
+    # Fused trunks, bf16.
+    use("bf16")
+    ref_bf16 = recorded_reference(model, inputs, gp)
+    use("bf16 fused")
+    fused = _segment(model, inputs, gp, eager=False, frames=FAST_FRAMES)
+    hold_near_ties("fast modes [bf16 fused] against bf16 (eager)", fused[1], ref_bf16)
+    gemms = {}
+    for name in ("bf16", "bf16 fused"):
+        use(name)
+        gemms[name] = profile_gemms(model, inputs, gp)
+    log(f"fast modes: bf16 (GEMM kernels a frame, names with {GEMM_NAMES}; device ops a "
+        f"frame), one profiled replay of 8 frames each: unfused {gemms['bf16']}, fused "
+        f"{gemms['bf16 fused']}; five products a layer become two, "
+        f"{3 * (layers + g * st_layers)} fewer expected | {smi}")
+    out["gemms"] = gemms
+    lap("fused bf16")
+
+    # Fused trunks, the serving mode.
+    use("serving")
+    ref_serving = recorded_reference(model, inputs, gp)
+    check_fused_int8_launches(trees)
+    prefill_int8 = layers * per_layer
+    sequential = {"decode_attention": 0, "decode_attention_int8": FAST_FRAMES * layers,
+                  "subtalker_step": FAST_FRAMES * g, "vocoder_block": 0,
+                  "int8_matmul": prefill_int8 + FAST_FRAMES * (layers * per_layer + g - 1)}
+    for name in ("serving", "serving fused"):
+        use(name)
+        _segment(model, inputs, gp, eager=False, frames=FAST_FRAMES)  # the capture
+        _, codes = fast_launches(model, inputs, gp, name, sequential)
+        hold_near_ties(f"fast modes [{name}] against serving (eager)", codes, ref_serving)
+    lap("fused serving")
+
+    # The Jacobi micro-decode, the serving mode.
+    use("serving")
+    jacobi_frame = layers * per_layer + (g - 1) * (st_layers * per_layer + g - 1)
+    histogram = {}
+    orig_jacobi = st_mod.subtalker_generate_jacobi
+
+    def counting_iters(*args, **kwargs):
+        codes, iters = orig_jacobi(*args, **kwargs, return_iters=True)
+        histogram[iters] = histogram.get(iters, 0) + 1
+        return codes
+
+    for batch in (inputs, inputs8):
+        b = batch[0].shape[0]
+        with st_gates(QTTS_ST_JACOBI="1"):
+            st_mod.subtalker_generate_jacobi = counting_iters
+            try:
+                histogram.clear()
+                eager = _segment(model, batch, gp, eager=True, frames=FAST_FRAMES)
+            finally:
+                st_mod.subtalker_generate_jacobi = orig_jacobi
+            log(f"fast modes [jacobi B={b}]: forwards a frame in the eager adaptive loop "
+                f"(the verifying one included; capped at G-1 = {g - 1}), over {FAST_FRAMES} "
+                f"frames: {dict(sorted(histogram.items()))}")
+            out[f"jacobi_iters_b{b}"] = dict(histogram)
+            _segment(model, batch, gp, eager=False, frames=FAST_FRAMES)  # the capture
+            expected = {"decode_attention": 0, "decode_attention_int8": FAST_FRAMES * layers,
+                        "subtalker_step": 0, "vocoder_block": 0,
+                        "int8_matmul": prefill_int8 + FAST_FRAMES * jacobi_frame}
+            state, codes = fast_launches(model, batch, gp, f"jacobi B={b}", expected)
+        same = _same_decode((state, codes), eager)
+        log(f"fast modes [jacobi B={b}]: the captured G-1 frame == the eager adaptive loop "
+            f"(buffer, token, hidden, presence, eos, num_gen bit for bit): {same}")
+        if not same:
+            fail(f"fast modes [jacobi B={b}]: the captured frame differs from the eager loop")
+        if b == 4:
+            hold_near_ties("fast modes [jacobi] against the sequential kernel route (eager)",
+                           codes, ref_serving)
+    with st_gates(QTTS_ST_JACOBI="1", QTTS_ST_JACOBI_ITERS="1"):
+        one = _segment(model, inputs, gp, eager=False, frames=FAST_FRAMES)[1]
+    log(f"fast modes [jacobi ITERS=1]: share of codes equal to the sequential route's (one "
+        f"forward is not the fixed point): {(one == ref_serving[1]).float().mean().item():.4f}")
+    lap("jacobi")
+
+    # The sub-talker int8 KV cache.
+    with st_gates(QTTS_ST_KV8="1"):
+        _segment(model, inputs, gp, eager=False, frames=FAST_FRAMES)  # the capture
+        steps = layers + g * st_layers
+        expected = {"decode_attention": 0, "decode_attention_int8": FAST_FRAMES * steps,
+                    "subtalker_step": 0, "vocoder_block": 0,
+                    "int8_matmul": prefill_int8 + FAST_FRAMES * (steps * per_layer + g - 1)}
+        _, codes = fast_launches(model, inputs, gp, "st kv8", expected)
+    hold_near_ties("fast modes [st kv8] against the bf16-cache route (eager)", codes,
+                   ref_serving)
+    lap("st kv8")
+
+    jacobi, iters_1, kv8 = {"QTTS_ST_JACOBI": "1"}, {"QTTS_ST_JACOBI": "1",
+                                                     "QTTS_ST_JACOBI_ITERS": "1"}, \
+        {"QTTS_ST_KV8": "1"}
+    out["ms"] = time_programs(model, use, {
+        "serving sequential B=4": ("serving", inputs, gp, {}),
+        "serving fused B=4": ("serving fused", inputs, gp, {}),
+        "serving jacobi G-1 B=4": ("serving", inputs, gp, jacobi),
+        "serving jacobi ITERS=1 B=4": ("serving", inputs, gp, iters_1),
+        "serving st kv8 B=4": ("serving", inputs, gp, kv8),
+        "serving sequential B=8": ("serving", inputs8, gp, {}),
+        "serving jacobi G-1 B=8": ("serving", inputs8, gp, jacobi)}, smi)
+    out["ms"].update(time_programs(model, use, {
+        "bf16 B=4": ("bf16", inputs, gp, {}), "bf16 fused B=4": ("bf16 fused", inputs, gp, {}),
+        "bf16 split B=4": ("bf16", inputs, gp, {"QTTS_ST_SPLIT": "1"})}, smi))
+    lap("timings")
+
+    # Gate flips: one capture each, none flipping back; SPLIT the same bits.
+    # With no program alive, each flip's program is new.
+    graphs.clear()
+    use("serving")
+    flips = {"QTTS_ST_JACOBI": "1", "QTTS_ST_JACOBI_ITERS": "1", "QTTS_ST_SPLIT": "1",
+             "QTTS_ST_KV8": "1", "QTTS_ST_UNROLL": "4", "QTTS_ST_UNROLL_LAYERS": "1"}
+    base = _segment(model, inputs, gp, eager=False, frames=2)
+    captures = {}
+    for key, value in flips.items():
+        with counting_captures() as flipped, st_gates(**{key: value}):
+            run = _segment(model, inputs, gp, eager=False, frames=2)
+        with counting_captures() as back:
+            _segment(model, inputs, gp, eager=False, frames=2)
+        captures[key] = (flipped[0], back[0])
+        if key == "QTTS_ST_SPLIT" and not _same_decode(run, base):
+            fail("fast modes: QTTS_ST_SPLIT changed the kernel route's bits")
+    log(f"fast modes: captures when each gate is flipped, then when it is flipped back: "
+        f"{captures}")
+    if any(c != (1, 0) for c in captures.values()):
+        fail("fast modes: a gate flip did not capture exactly one new frame, or flipping it "
+             "back did not replay the old one")
+    use("bf16")
+    split_runs = []
+    for split in (None, "1"):
+        with st_gates(QTTS_ST_SPLIT=split):
+            split_runs.append(_segment(model, inputs, gp, eager=False, frames=FAST_FRAMES))
+    same = _same_decode(*split_runs)
+    log(f"fast modes: QTTS_ST_SPLIT=1 gives the bits of the unset gate: on the kernel route "
+        f"(serving) True, on the layer-by-layer route (bf16) {same}")
+    if not same:
+        fail("fast modes: QTTS_ST_SPLIT changed the layer-by-layer route's bits")
+    check_split_attention()
+    lap("gate flips and split")
+    log_programs("fast modes", smi)
+    del model, trees
+    graphs.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -3988,6 +4567,9 @@ def main() -> int:
         graphs.clear()
         timed("parity int8+kv", phase_parity, model_dir, "int8+kv")
         graphs.clear()
+        with st_gates(QTTS_ST_KV8="1"):
+            timed("parity int8+kv+st-kv8", phase_parity, model_dir, "int8+kv+st-kv8")
+        graphs.clear()
         timed("codec bf16", phase_codec_bf16, model_dir, smi, path)
         stream = timed("stream", phase_stream, model_dir, smi)
         timed("graphs", phase_graphs, model_dir, smi)
@@ -3999,6 +4581,7 @@ def main() -> int:
             f"{time.perf_counter() - t0:.1f} s")
         clone = timed("clone", phase_clone, base_dir, smi)
         serving_engines = timed("serving engines", phase_serving, model_dir, base_dir, smi)
+        timed("fast modes", phase_fast_modes, model_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.

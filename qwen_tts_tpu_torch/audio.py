@@ -7,7 +7,9 @@ plus the original sample rate.
 
 Resampling is polyphase windowed-sinc (``scipy.signal.resample_poly`` with a
 64-zero-crossing Kaiser filter), not linear interpolation: the reference audio
-feeds both the codec encoder and the speaker x-vector.
+feeds both the codec encoder and the speaker x-vector. Where ``scipy.signal``
+cannot be imported, a numpy convolution with the same filter
+(``_resample_poly_np``) takes its place, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,18 +41,46 @@ def _design_kaiser(up: int, down: int, num_zeros: int = 64,
     return c * np.sinc(c * n) * np.kaiser(2 * half + 1, beta)
 
 
+def _scipy_resample_poly():
+    """``scipy.signal.resample_poly``, or None where scipy.signal cannot be
+    imported."""
+    try:
+        from scipy.signal import resample_poly
+    except ImportError:
+        return None
+    return resample_poly
+
+
 def resample(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
     """Polyphase windowed-sinc resampling (Kaiser beta 14.77, 64 zero
-    crossings), float32 out."""
+    crossings), float32 out: scipy's ``resample_poly`` where scipy.signal can
+    be imported, else ``_resample_poly_np`` with the same filter."""
     if sr_in == sr_out:
         return np.asarray(wav, np.float32)
-    from scipy.signal import resample_poly
-
     g = math.gcd(int(sr_in), int(sr_out))
     up, down = sr_out // g, sr_in // g
-    out = resample_poly(np.asarray(wav, np.float64), up, down,
-                        window=_design_kaiser(up, down))
-    return out.astype(np.float32)
+    h = _design_kaiser(up, down)
+    resample_poly = _scipy_resample_poly()
+    if resample_poly is None:
+        return _resample_poly_np(np.asarray(wav, np.float64), up, down, h)
+    return resample_poly(np.asarray(wav, np.float64), up, down, window=h).astype(np.float32)
+
+
+def _resample_poly_np(x: np.ndarray, up: int, down: int, h: np.ndarray) -> np.ndarray:
+    """``resample_poly`` in numpy (float64 in, float32 out): zero-stuff by
+    ``up``, convolve with ``h`` (centred), keep every ``down``-th sample,
+    the right edge padded with zeros to ceil(n * up / down) samples.
+    O(n * up * taps), for clip-length reference audio."""
+    taps = h.shape[0]
+    x_up = np.zeros(x.shape[0] * up)
+    x_up[::up] = x
+    y_up = np.convolve(x_up, h)[taps // 2: taps // 2 + x_up.shape[0]]
+    n_out = -(-x.shape[0] * up // down)
+    idx = np.arange(n_out) * down
+    y = up * y_up[idx[idx < y_up.shape[0]]]
+    if y.shape[0] < n_out:
+        y = np.pad(y, (0, n_out - y.shape[0]))
+    return y.astype(np.float32)
 
 
 def _is_url(s: str) -> bool:

@@ -22,6 +22,7 @@ The prefill stays eager.
 from __future__ import annotations
 
 import dataclasses
+import os
 import weakref
 from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -478,6 +479,7 @@ def _frame_body(
     generator: Optional[torch.Generator],
     vec_sampling: Optional[VecSampling] = None,
     st_vec_sampling: Optional[VecSampling] = None,
+    captured: bool = False,
 ):
     """One frame of the AR loop: sub-talker → Σ-embed + trailing → talker
     step → sample. Positions are per row (from ``num_gen``); with
@@ -486,7 +488,18 @@ def _frame_body(
 
     A frame in which no row is active changes nothing of the state and
     returns zeros, as a loop that stopped before it would have left them.
-    The host reads no device value: the frame is captured as a CUDA graph."""
+    The host reads no device value: the frame is captured as a CUDA graph.
+
+    The sub-talker's gates are read here, as the frame is built:
+    ``QTTS_ST_JACOBI=1`` takes ``subtalker_generate_jacobi`` (with
+    ``QTTS_ST_JACOBI_ITERS`` forwards when set; else, for a ``captured``
+    frame, which cannot branch on device values, G-1, and the adaptive loop
+    otherwise), else ``subtalker_generate`` (which reads ``QTTS_ST_KV8`` and
+    ``QTTS_ST_SPLIT``)."""
+    jacobi = st_mod.env_flag("QTTS_ST_JACOBI")
+    iters = os.environ.get("QTTS_ST_JACOBI_ITERS")
+    fixed_iters = (int(iters) if iters
+                   else talker_cfg.num_code_groups - 1 if captured else None)
     eos_id = talker_cfg.codec_eos_token_id
     trailing_max = trailing.shape[1] - 1
     process_and_sample = _processor(talker_cfg, sampling, trailing.device, vec_sampling)
@@ -498,10 +511,17 @@ def _frame_body(
         active = ~st.eos & (st.num_gen < step_limit)
 
         # 1) the sub-talker expands the current token into all groups.
-        frame = st_mod.subtalker_generate(
-            st_params, talker_cfg.code_predictor, talker_params["codec_embedding"],
-            st.hidden, st.token, st_sampling, generator, st_vec_sampling,
-        )  # [B, G]
+        if jacobi:
+            frame = st_mod.subtalker_generate_jacobi(
+                st_params, talker_cfg.code_predictor, talker_params["codec_embedding"],
+                st.hidden, st.token, sampling=st_sampling, generator=generator,
+                vec_sampling=st_vec_sampling, fixed_iters=fixed_iters,
+            )  # [B, G]
+        else:
+            frame = st_mod.subtalker_generate(
+                st_params, talker_cfg.code_predictor, talker_params["codec_embedding"],
+                st.hidden, st.token, st_sampling, generator, st_vec_sampling,
+            )  # [B, G]
         num_gen = st.num_gen + active.int()
 
         # 2) next talker input: Σ group embeddings + trailing text / tts_pad.
@@ -562,10 +582,29 @@ def _decode_eager(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig
                   vec_sampling: Optional[VecSampling] = None,
                   st_vec_sampling: Optional[VecSampling] = None,
                   check: bool = True) -> Tuple[DecodeState, torch.Tensor]:
-    """``_frame_loop`` over ``_frame_body``, each op run as it comes."""
+    """``_frame_loop`` over ``_frame_body``, each op run as it comes. Without
+    ``check`` the frames read no device value on the host, as a captured
+    program's must (``_frame_body``'s ``captured``)."""
     body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                       trailing, step_limit, state.generator, vec_sampling, st_vec_sampling)
+                       trailing, step_limit, state.generator, vec_sampling, st_vec_sampling,
+                       captured=not check)
     return _frame_loop(body, state, segment, step_limit, talker_cfg.num_code_groups, check)
+
+
+def frame_key(state: DecodeState, trailing: torch.Tensor, talker_cfg: TalkerConfig,
+              sampling: SamplingConfig, st_sampling: SamplingConfig,
+              vec_sampling: Optional[VecSampling] = None,
+              st_vec_sampling: Optional[VecSampling] = None) -> tuple:
+    """The key of the frame program that advances ``state``: what its
+    capture bakes in (device, batch, widths and dtypes, cache length and
+    type, trailing bucket, sampling configs or per-row sampling, the
+    sub-talker's gates)."""
+    cache = state.k_cache
+    return ("frame", state.token.device, tuple(state.hidden.shape), state.hidden.dtype,
+            _cache_slots(cache), "int8" if isinstance(cache, dict) else cache.dtype,
+            trailing_rows(trailing), trailing.dtype, sampling, st_sampling, talker_cfg,
+            "vec" if vec_sampling is not None else None,
+            "st_vec" if st_vec_sampling is not None else None, st_mod.st_env_token())
 
 
 def _decode(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
@@ -577,20 +616,17 @@ def _decode(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
     """Up to ``segment`` frames from ``state``, as ``_frame_loop`` runs
     them: on the card, replays of one captured frame (``_FrameGraph``); on
     the CPU, the same frames run eagerly. The program's key marks per-row
-    sampling, not its values: one capture serves every mix of controls."""
+    sampling, not its values: one capture serves every mix of controls; it
+    holds the sub-talker's gates (``st_env_token``), which the frame reads as
+    it is captured."""
     if not state.token.is_cuda:
         return _decode_eager(talker_params, st_params, talker_cfg, sampling, st_sampling,
                              state, trailing, step_limit, segment, vec_sampling, st_vec_sampling)
-    rows = trailing_rows(trailing)
-    cache = state.k_cache
-    key = ("frame", state.token.device, tuple(state.hidden.shape), state.hidden.dtype,
-           _cache_slots(cache), "int8" if isinstance(cache, dict) else cache.dtype,
-           rows, trailing.dtype, sampling, st_sampling, talker_cfg,
-           "vec" if vec_sampling is not None else None,
-           "st_vec" if st_vec_sampling is not None else None)
+    key = frame_key(state, trailing, talker_cfg, sampling, st_sampling, vec_sampling,
+                    st_vec_sampling)
     program = graphs.cached(key, (talker_params, st_params), lambda: _FrameGraph(
         talker_params, st_params, talker_cfg, sampling, st_sampling, state, trailing,
-        step_limit, rows, vec_sampling, st_vec_sampling))
+        step_limit, trailing_rows(trailing), vec_sampling, st_vec_sampling))
     return program.run(state, trailing, step_limit, segment, vec_sampling, st_vec_sampling)
 
 
@@ -675,7 +711,8 @@ class _FrameGraph:
                  or self.st_vec is not None)
         generator = torch.Generator(device=device) if draws else None
         body = _frame_body(talker_params, st_params, talker_cfg, sampling, st_sampling,
-                           self.trailing, self.limit, generator, self.vec, self.st_vec)
+                           self.trailing, self.limit, generator, self.vec, self.st_vec,
+                           captured=True)
         st = self.state
 
         def frame():

@@ -19,6 +19,11 @@ dequantizes at the matmul, ``(x @ w_i8) * s`` in the activation dtype,
 through the hand-written int8 GEMM (``ops/cuda/int8_matmul.py``) for CUDA
 tensors, which reads only the int8 bytes, and its plain version for CPU
 tensors; the products that read one x (q|k|v, gate|up) are one launch.
+
+``fuse_trunk_params`` joins Q|K|V into ``wqkv`` and gate|up into ``wgu``
+(two products a layer instead of five); the trunk functions detect the fused
+keys, float or int8, with the JAX package's precedence: separate int8
+weights first, then fused ones, then separate float ones.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ class TrunkDims(NamedTuple):
     qk_norm: bool = True
 
 
-_PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down")
+_PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "wqkv", "wgu")
 
 
 def _layer(params: dict, l: int) -> dict:
@@ -63,10 +68,24 @@ def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(w / scale).to(torch.int8), scale.to(torch.bfloat16)
 
 
+def fuse_trunk_params(params: dict) -> dict:
+    """Q|K|V concatenated into ``wqkv`` [L, D, q + 2kv] and gate|up into
+    ``wgu`` [L, D, 2I], the five separate weights dropped: one product each
+    instead of five a layer. The trunk functions detect the fused keys."""
+    fused = dict(params)
+    fused["wqkv"] = torch.cat([params["wq"], params["wk"], params["wv"]], dim=-1)
+    fused["wgu"] = torch.cat([params["gate"], params["up"]], dim=-1)
+    for k in ("wq", "wk", "wv", "gate", "up"):
+        del fused[k]
+    return fused
+
+
 def quantize_trunk_int8(params: dict) -> dict:
     """int8 projections with per-output-channel symmetric scales, stored
     bf16 whatever the model dtype (``<key>_i8`` [L, in, out], ``<key>_s``
-    [L, 1, out])."""
+    [L, 1, out]); fused weights too. A scale is per output column, so the
+    int8 values and scales of a fused weight are those of its parts,
+    concatenated."""
     out = dict(params)
     for k in _PROJECTIONS:
         if k in params:
@@ -90,8 +109,15 @@ def _w_matmuls(layer: dict, keys: Sequence[str], x: torch.Tensor) -> list:
 
 
 def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
-    """x: [..., D] → q [..., H, hd], k/v [..., KV, hd] with QK-RMSNorm."""
-    q, k, v = _w_matmuls(layer, ("wq", "wk", "wv"), x)
+    """x: [..., D] → q [..., H, hd], k/v [..., KV, hd] with QK-RMSNorm.
+    Separate int8 weights (one grouped launch), else a fused ``wqkv`` (one
+    product), else separate float weights."""
+    if "wq_i8" in layer or "wqkv" not in layer and "wqkv_i8" not in layer:
+        q, k, v = _w_matmuls(layer, ("wq", "wk", "wv"), x)
+    else:
+        q, k, v = _w_matmul(layer, "wqkv", x).split(
+            [dims.heads * dims.head_dim, dims.kv_heads * dims.head_dim,
+             dims.kv_heads * dims.head_dim], dim=-1)
     q = q.unflatten(-1, (dims.heads, dims.head_dim))
     k = k.unflatten(-1, (dims.kv_heads, dims.head_dim))
     v = v.unflatten(-1, (dims.kv_heads, dims.head_dim))
@@ -102,7 +128,12 @@ def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
 
 
 def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
-    gate, up = _w_matmuls(layer, ("gate", "up"), x)
+    """SwiGLU: separate int8 weights (one grouped launch), else a fused
+    ``wgu`` (one product), else separate float weights."""
+    if "gate_i8" in layer or "wgu" not in layer and "wgu_i8" not in layer:
+        gate, up = _w_matmuls(layer, ("gate", "up"), x)
+    else:
+        gate, up = _w_matmul(layer, "wgu", x).chunk(2, dim=-1)
     return _w_matmul(layer, "down", F.silu(gate) * up)
 
 

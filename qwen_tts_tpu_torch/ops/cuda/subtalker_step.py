@@ -13,12 +13,13 @@ its design.
 
 ``pack_subtalker_weights`` lays the ``quantize_trunk_int8`` tree out once in
 the kernel's layout (below) and checks it; the pack is the only copy of the
-weights the serving mode keeps. The KV cache is the port's ``[L, B, G, KV,
-hd]`` in the activation dtype. ``subtalker_step`` launches the kernel for
-CUDA tensors (flagship dims, float32 or bfloat16, 1 <= B <= 32; anything else
-raises) and takes ``subtalker_step_plain``, which un-tiles the pack and works
-at any dims, only for CPU tensors. ``subtalker_step.launches`` counts kernel
-launches.
+weights the serving mode keeps until a route that runs the trunk layer by
+layer asks for the tree (``SubtalkerPack.trunk``). The KV cache is the
+port's ``[L, B, G, KV, hd]`` in the activation dtype. ``subtalker_step``
+launches the kernel for CUDA tensors (flagship dims, float32 or bfloat16,
+1 <= B <= 32; anything else raises) and takes ``subtalker_step_plain``,
+which un-tiles the pack and works at any dims, only for CPU tensors.
+``subtalker_step.launches`` counts kernel launches.
 
 Layout. The output columns of each projection are split over NB blocks (128
 at the flagship dims, one per SM); a block owns whole columns over the full
@@ -140,7 +141,8 @@ class SubtalkerPack(dict):
     them. ``dtype`` and ``device`` are the activations' and the card's;
     ``kernel_refuses`` says why the kernel cannot take the pack (None if it
     can). The launch scratch is kept here, one per batch size: launches on
-    one pack run one after another on one stream."""
+    one pack run one after another on one stream; so is the untiled trunk
+    (``trunk``)."""
 
     dtype: torch.dtype
     device: torch.device
@@ -154,20 +156,48 @@ class SubtalkerPack(dict):
             self._scratch[batch] = buf
         return buf
 
+    def trunk(self) -> dict:
+        """The ``quantize_trunk_int8`` tree of the unfused trunk, bit for bit
+        (a fused tree's weights split again): the same weights untiled, for
+        the routes that run the trunk layer by layer. Made at the first call
+        and kept here (~80 MB at the flagship dims), so only a model that runs
+        such a route holds its weights twice; not while a graph is captured
+        (a frame's warm-up run makes it first)."""
+        if self._trunk is None:
+            if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("SubtalkerPack.trunk: untile the pack before a capture")
+            rows = unpack_subtalker_weights(self)
+            _, d, n_qkv, n_q, inter = _pack_dims(self)
+            n_kv = (n_qkv - n_q) // 2
+            tree = {k: self[k] for k in _NORMS}
+            for name, keys, widths in (("wqkv", ("wq", "wk", "wv"), (n_q, n_kv, n_kv)),
+                                       ("wo", ("wo",), (d,)), ("wgu", ("gate", "up"),
+                                                               (inter, inter)),
+                                       ("down", ("down",), (d,))):
+                scales = rows[_SCALES[name]].to(torch.bfloat16)[:, None]  # widened from bf16
+                for key, w, s in zip(keys, rows[name].split(widths, dim=-1),
+                                     scales.split(widths, dim=-1)):
+                    tree[key + "_i8"], tree[key + "_s"] = w.contiguous(), s.contiguous()
+            self._trunk = tree
+        return self._trunk
+
 
 def pack_subtalker_weights(trunk: dict) -> SubtalkerPack:
-    """The kernel's operands from a ``quantize_trunk_int8`` trunk tree: the
-    int8 weights of Q/K/V, o-proj, [gate|up] and down tiled into the kernel
-    layout (values unchanged: the scales are per output column), the bf16
-    scales widened to f32 in the same column order, the norms as they are.
-    Checked here once, so a launch checks only its activations."""
-    rows = {
-        "wqkv": torch.cat([trunk[k + "_i8"] for k in ("wq", "wk", "wv")], dim=-1),
-        "wo": trunk["wo_i8"], "wgu": torch.cat([trunk["gate_i8"], trunk["up_i8"]], dim=-1),
-        "down": trunk["down_i8"],
-    }
+    """The kernel's operands from a ``quantize_trunk_int8`` trunk tree, with
+    separate or fused (``wqkv_i8`` / ``wgu_i8``) projections: the int8
+    weights of Q/K/V, o-proj, [gate|up] and down tiled into the kernel layout
+    (values unchanged: the scales are per output column), the bf16 scales
+    widened to f32 in the same column order, the norms as they are. A fused
+    tree gives the bytes of its unfused one: the pack joins q|k|v and gate|up
+    in the same order. Checked here once, so a launch checks only its
+    activations."""
     scale_keys = {"wqkv": ("wq", "wk", "wv"), "wo": ("wo",), "wgu": ("gate", "up"),
                   "down": ("down",)}
+    for fused in ("wqkv", "wgu"):
+        if fused + "_i8" in trunk and scale_keys[fused][0] + "_i8" not in trunk:
+            scale_keys[fused] = (fused,)
+    rows = {name: torch.cat([trunk[k + "_i8"] for k in keys], dim=-1)
+            for name, keys in scale_keys.items()}
     n_layers, d, n_qkv = rows["wqkv"].shape
     nb, layout = _layout(d, n_qkv, rows["wo"].shape[1], rows["wgu"].shape[-1] // 2)
     pack = SubtalkerPack({k: trunk[k].contiguous() for k in _NORMS})
@@ -204,7 +234,7 @@ def _check_pack(pack: SubtalkerPack) -> None:
     dtype = pack["input_norm"].dtype
     n_layers, d, n_qkv, n_q, inter = _pack_dims(pack)
     hd = pack["q_norm"].shape[1]
-    pack.dtype, pack.device, pack._scratch = dtype, pack["wqkv"].device, {}
+    pack.dtype, pack.device, pack._scratch, pack._trunk = dtype, pack["wqkv"].device, {}, None
     for name in _NORMS:
         if pack[name].dtype != dtype:
             raise TypeError(f"pack_subtalker_weights: {name} is {pack[name].dtype}, "

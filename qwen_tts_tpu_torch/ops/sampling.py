@@ -83,10 +83,18 @@ def _top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     return logits.masked_fill(logits < cutoff, NEG_INF)
 
 
+def exponential_race(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+    """E ~ Exp(1) per entry, f32, drawn from ``generator``: the noise of an
+    exponential race (``sample_token``'s ``race``)."""
+    return torch.empty(shape, dtype=torch.float32, device=device).exponential_(
+        generator=generator)
+
+
 def sample_token(
     logits: torch.Tensor,  # [B, V] float32, already suppress/penalty-processed
     cfg: SamplingConfig,
     generator: Optional[torch.Generator],
+    race: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Returns [B] int64 token ids. ``generator`` lives on the logits' device
     and is only read when sampling.
@@ -95,14 +103,16 @@ def sample_token(
     per entry: the categorical draw ``torch.multinomial(probs, 1)`` makes
     (the same numbers from the same generator), written out so that no host
     check of the probabilities runs and the draw can be captured in a CUDA
-    graph."""
+    graph. ``race`` [B, V] gives E drawn beforehand (``exponential_race``),
+    and the generator is then not read."""
     if not cfg.do_sample:
         return torch.argmax(logits, dim=-1)
     warped = logits / _divisor(logits, max(cfg.temperature, 1e-5))
     warped = _top_k_filter(warped, cfg.top_k)
     warped = _top_p_filter(warped, cfg.top_p)
     probs = torch.softmax(warped, dim=-1)
-    race = torch.empty_like(probs).exponential_(generator=generator)
+    if race is None:
+        race = exponential_race(probs.shape, generator, probs.device)
     return (probs / race).argmax(dim=-1)
 
 

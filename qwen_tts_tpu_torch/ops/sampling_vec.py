@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from qwen_tts_tpu_torch.ops.sampling import NEG_INF, SamplingConfig
+from qwen_tts_tpu_torch.ops.sampling import NEG_INF, SamplingConfig, exponential_race
 
 FIELDS = ("do_sample", "temperature", "top_k", "top_p", "repetition_penalty", "min_new_tokens")
 _DTYPES = {"do_sample": torch.bool, "temperature": torch.float32, "top_k": torch.int32,
@@ -117,10 +117,13 @@ def sample_token_vec(
     logits: torch.Tensor,  # [B, V] f32, suppress/penalty already applied
     vs: VecSampling,
     generator: Optional[torch.Generator],
+    race: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[B] int64 tokens: each row sampled under its own controls, or its
     argmax where ``do_sample`` is off. Always draws one exponential race of
-    [B, V] from ``generator``, whatever the rows ask."""
+    [B, V] from ``generator``, whatever the rows ask, unless ``race`` gives
+    one drawn beforehand."""
     probs = torch.softmax(warp_vec(logits, vs), dim=-1)
-    race = torch.empty_like(probs).exponential_(generator=generator)
+    if race is None:
+        race = exponential_race(probs.shape, generator, probs.device)
     return torch.where(vs.do_sample, (probs / race).argmax(dim=-1), logits.argmax(dim=-1))

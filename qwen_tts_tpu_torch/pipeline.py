@@ -48,7 +48,7 @@ from qwen_tts_tpu_torch.generate import (
 from qwen_tts_tpu_torch.io.loader import load_checkpoint
 from qwen_tts_tpu_torch.models import codec as codec_mod
 from qwen_tts_tpu_torch.models.speaker import mel_spectrogram, speaker_encoder_forward
-from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8
+from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8, st_env_token
 from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import pack_subtalker_weights
 from qwen_tts_tpu_torch.utils import Device, resolve_device
@@ -98,21 +98,32 @@ def _first_packet_program(
         return _first_packet_eager(talker_params, st_params, codec_params, talker_cfg, dec_cfg,
                                    embeds, mask, trailing, generator=generator,
                                    step_limit=step_limit, **kw)
-    rows = trailing_rows(trailing)
-    key = ("first_packet", embeds.device, tuple(embeds.shape), embeds.dtype, rows,
-           trailing.dtype, talker_cfg, dec_cfg, tuple(sorted(kw.items())))
-    program = graphs.cached(key, (talker_params, st_params, codec_params), lambda: (
-        _FirstPacketGraph(talker_params, st_params, codec_params, talker_cfg, dec_cfg, embeds,
-                          mask, trailing, step_limit, rows, **kw)))
+    program = graphs.cached(
+        first_packet_key(embeds, trailing, talker_cfg, dec_cfg, **kw),
+        (talker_params, st_params, codec_params), lambda: (
+            _FirstPacketGraph(talker_params, st_params, codec_params, talker_cfg, dec_cfg,
+                              embeds, mask, trailing, step_limit, trailing_rows(trailing),
+                              **kw)))
     return program.run(embeds, mask, trailing, step_limit, generator)
+
+
+def first_packet_key(embeds: torch.Tensor, trailing: torch.Tensor, talker_cfg, dec_cfg,
+                     **kw) -> tuple:
+    """The key of the first-packet program: the prompt and trailing buckets,
+    dtypes, configs, ``_first_packet_program``'s keywords and the
+    sub-talker's gates."""
+    return ("first_packet", embeds.device, tuple(embeds.shape), embeds.dtype,
+            trailing_rows(trailing), trailing.dtype, talker_cfg, dec_cfg,
+            tuple(sorted(kw.items())), st_env_token())
 
 
 class _FirstPacketGraph:
     """``_first_packet_eager`` (without the flag read: its frames all run)
     captured as one CUDA graph for one prompt bucket, trailing bucket,
-    ``first_segment``, ``max_cache_len``, dtypes, ``kv_int8`` and sampling
-    configs. The prompt goes into its static inputs before each replay; its
-    outputs are copied out after it."""
+    ``first_segment``, ``max_cache_len``, dtypes, ``kv_int8``, sampling
+    configs and sub-talker gates (``first_packet_key``). The prompt goes
+    into its static inputs before each replay; its outputs are copied out
+    after it."""
 
     def __init__(self, talker_params, st_params, codec_params, talker_cfg, dec_cfg,
                  embeds, mask, trailing, step_limit, rows, **kw):
@@ -251,7 +262,11 @@ class Qwen3TTSModel:
         """int8 serving mode, in place; returns self. The sub-talker trunk,
         its stacked tables and its LM heads always go int8 (per-channel bf16
         scales); each micro-step then runs as one ``subtalker_step`` launch.
-        The trunk is kept only as that kernel's pack (``trunk_packed``).
+        The trunk is kept only as that kernel's pack (``trunk_packed``); the
+        routes that run it layer by layer (the sub-talker int8 KV cache, the
+        Jacobi micro-decode) untile it once, when they first run
+        (``SubtalkerPack.trunk``). A trunk fused by ``fuse_trunk_params``
+        packs to the bytes of its unfused one.
         ``talker=True`` also makes the talker trunk int8; ``kv=True`` keeps the
         talker KV cache as int8 dicts (per-token, per-head f32 scales). Greedy
         codes are no longer those of the float model: a serving mode, not
