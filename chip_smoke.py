@@ -145,7 +145,21 @@ Phases, each of which exits non-zero on failure:
    the same checkpoint: codes against the routes they replace (near ties
    allowed), launches exact, the captured Jacobi frame against the eager
    adaptive loop bit for bit, ms a frame, one capture per gate flip, and
-   ``QTTS_ST_SPLIT`` bit-identical.
+   ``QTTS_ST_SPLIT`` bit-identical;
+14. 25 Hz tokenizer (``phase_tokenizer_25hz``): a random checkpoint at the
+   JAX package's 25 Hz widths (the DiT 22 x 1024, BigVGAN 1536 channels at
+   rates 5·3·2·2·2·2, Whisper-VQ 16 x 1280, a CAM++-style ONNX graph);
+   ``Qwen3TTSTokenizer`` f32 on the card against the CPU (the DiT's mel and
+   the waveform before the clamp under one initial noise, Whisper-VQ codes
+   with near ties only, reference mels, x-vectors), then the bf16 decode of
+   8 rows x 250 codes timed (DiT against BigVGAN by events, RTF, peak
+   memory) beside its compute bounds, the encode of phase 11's clips timed,
+   and one decode profiled (top ops, idle share). No kernel of the port's
+   is on this path.
+
+Phase 7's ``QTTS_ST_KV8=1`` run also feeds the card's sub-talker int8 cache
+to the CPU (``hold_fed_subtalker_kv``) and holds the logits within
+``KV8_FED_LOGIT_RTOL``.
 
 Each phase logs its seconds (``time: ...``). The line before the last holds
 the kernels' JSON records; the last line is ``{"ok": true, "device": {...}}``.
@@ -162,6 +176,7 @@ import os
 import re
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2452,12 +2467,65 @@ def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) ->
                     f"launches: {e.key[:70]} | {smi}")
 
 
-def _greedy_codes(model, device, texts, speakers, kw, forced=None):
+@contextlib.contextmanager
+def subtalker_kv_writes(entries: list, feed: bool, flips: list):
+    """The sub-talker's int8 KV cache writes (``QTTS_ST_KV8=1``), in order:
+    each write's int8 entries and scales recorded into ``entries`` (on the
+    host); or, with ``feed``, ``entries`` written in place of this run's own,
+    so that a CPU run reads the card's cache and no quantization flip between
+    the two remains. Fed, ``flips`` collects (entries that differ from this
+    run's own quantization, entries, largest step) per write."""
+    from qwen_tts_tpu_torch.models import subtalker as st_mod
+    from qwen_tts_tpu_torch.models import trunk as trunk_mod
+    from qwen_tts_tpu_torch.ops.attention import quantize_kv
+
+    inside = [False]
+    step, write = st_mod.trunk_decode_step, trunk_mod._cache_write_token
+    taken = iter(range(len(entries))) if feed else None
+
+    def in_subtalker(*args, **kwargs):
+        inside[0] = True
+        try:
+            return step(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def cache_write(cache, l, rows, write_pos, x):
+        if not (inside[0] and isinstance(cache, dict)):
+            return write(cache, l, rows, write_pos, x)
+        if not feed:
+            write(cache, l, rows, write_pos, x)
+            entries.append((cache["i8"][l, rows, write_pos].cpu(),
+                            cache["s"][l, rows, write_pos].cpu()))
+            return None
+        i = next(taken, None)
+        if i is None:
+            fail("parity: the CPU run writes more sub-talker cache entries than the card's")
+        q8, scale = entries[i]
+        own, _ = quantize_kv(x)
+        delta = (own.int() - q8.int()).abs()
+        flips.append((int((delta > 0).sum()), delta.numel(), int(delta.max())))
+        cache["i8"][l, rows, write_pos] = q8.to(cache["i8"].device)
+        cache["s"][l, rows, write_pos] = scale.to(cache["s"].device)
+        return None
+
+    st_mod.trunk_decode_step, trunk_mod._cache_write_token = in_subtalker, cache_write
+    try:
+        yield
+    finally:
+        st_mod.trunk_decode_step, trunk_mod._cache_write_token = step, write
+    if feed and next(taken, None) is not None:
+        fail("parity: the CPU run wrote fewer sub-talker cache entries than the card's")
+
+
+def _greedy_codes(model, device, texts, speakers, kw, forced=None, st_kv=None):
     """f32 greedy codes [rows, frames, groups], every sampling call's logits
     (on the CPU) and token, and the talker KV caches as the run left them,
     from an eager run (on the card too: the recording reads every call).
     With ``forced``, another run's tokens are taken at each call instead of
-    this run's own (teacher forcing), so both runs see the same contexts."""
+    this run's own (teacher forcing), so both runs see the same contexts.
+    ``st_kv``: ``subtalker_kv_writes``' arguments, to record or feed the
+    sub-talker's int8 cache entries."""
     import numpy as np
 
     from qwen_tts_tpu_torch import generate as gen_mod
@@ -2485,7 +2553,9 @@ def _greedy_codes(model, device, texts, speakers, kw, forced=None):
             model.talker_params, model.cfg,
             model._tokenize(model.build_assistant_text(t)), speaker=s)
             for t, s in zip(texts, speakers)]
-        with eager_decode():  # the recording reads every call on the host
+        with eager_decode(), (subtalker_kv_writes(*st_kv) if st_kv is not None
+                              else contextlib.nullcontext()):
+            # the recording reads every call on the host
             codes, _ = model.generate_codes_from_prompts(prompts, model._merge_params(**kw))
     finally:
         gen_mod.sample_token, st_mod.sample_token, gen_mod.talker_mod.alloc_kv_cache = originals
@@ -2548,7 +2618,10 @@ def phase_parity(model_dir: str, mode: str = "float"):
         model.tokenizer = ChatTemplateTokenizer()
         models[device] = model
     splits = _attention_splits()
-    a, card_calls, card_cache = _greedy_codes(models["cuda"], "cuda", texts, speakers, kw)
+    st_entries = [] if mode == "int8+kv+st-kv8" else None
+    a, card_calls, card_cache = _greedy_codes(
+        models["cuda"], "cuda", texts, speakers, kw,
+        st_kv=None if st_entries is None else (st_entries, False, []))
     log(f"{name}: decode-attention launches on the card by n_split {splits()}")
     b, cpu_calls, _ = _greedy_codes(models["cpu"], "cpu", texts, speakers, kw)
     _, forced_calls, cpu_cache = _greedy_codes(models["cpu"], "cpu", texts, speakers, kw,
@@ -2608,6 +2681,44 @@ def phase_parity(model_dir: str, mode: str = "float"):
     if mismatched or step > 1 or not worst <= tol:
         fail(f"{name}: card and CPU disagree: calls/rows {mismatched[:5]}, int8 KV step "
              f"{step}, max logit diff {worst:.3g}")
+    if st_entries is not None:
+        hold_fed_subtalker_kv(name, models["cpu"], texts, speakers, kw, card_calls, st_entries,
+                              scale)
+
+
+# The sub-talker int8 KV route with its quantization flips taken out: the
+# CPU's teacher-forced run reads the card's sub-talker cache entries and
+# scales (``subtalker_kv_writes``), so only the talker's int8 KV (whose gap
+# alone, the "int8+kv" run, was 0.00359 of a largest |logit| ~5.4 on an
+# NVIDIA H100 80GB HBM3 at 700 W) and f32 sums in other orders remain. Its logits must agree within a quarter of one
+# int8 step of the largest logit, set before the first card run of the check.
+KV8_FED_LOGIT_RTOL = 1 / (4 * 127)
+
+
+def hold_fed_subtalker_kv(name, cpu_model, texts, speakers, kw, card_calls, entries,
+                          scale: float) -> None:
+    """Phase 7's flip-free check of ``QTTS_ST_KV8=1``: the CPU run
+    teacher-forced on the card's tokens and fed the card's sub-talker int8
+    cache; max |logit card - CPU| within KV8_FED_LOGIT_RTOL x the largest
+    |logit|."""
+    flips = []
+    _, fed_calls, _ = _greedy_codes(cpu_model, "cpu", texts, speakers, kw, forced=card_calls,
+                                    st_kv=(entries, True, flips))
+    if len(fed_calls) != len(card_calls) or not flips:
+        fail(f"{name}: the fed CPU run made {len(fed_calls)} sampling calls, the card "
+             f"{len(card_calls)}; {len(flips)} sub-talker cache writes fed")
+    gap = 0.0
+    for (lg_card, _), (lg_cpu, _) in zip(card_calls, fed_calls):
+        live = lg_cpu > -1e8  # suppressed entries hold the same fill on both
+        gap = max(gap, ((lg_card - lg_cpu) * live).abs().max().item())
+    tol = KV8_FED_LOGIT_RTOL * scale
+    log(f"{name}: fed the card's sub-talker int8 cache ({len(flips)} writes; the CPU's own "
+        f"quantization would differ at {sum(f[0] for f in flips)} of "
+        f"{sum(f[1] for f in flips)} entries, largest step {max(f[2] for f in flips)}): max "
+        f"|logit card - CPU| {gap:.3g} (tol {tol:.3g} = largest |logit| / {4 * 127})")
+    if not gap <= tol:
+        fail(f"{name}: with the card's sub-talker cache fed, the logits still differ by "
+             f"{gap:.3g} (tol {tol:.3g})")
 
 
 def decode_walls(model, codes, runs: int = 5) -> list:
@@ -4529,6 +4640,575 @@ def phase_fast_modes(model_dir: str, smi: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the 25 Hz tokenizer
+# --------------------------------------------------------------------------
+
+# The timed decode: B=8 rows of 250 codes (10 s of codes at 25 Hz), a
+# reference mel of 100 frames each; three calls after a warm-up.
+V1_BATCH, V1_CODES, V1_REF_FRAMES = 8, 250, 100
+# Card against CPU in f32 (B=1, 50 codes: 2 s of codes), set before the
+# first card run: the DiT's mel within V1_MEL_REL_L2 and the waveform before
+# the clamp within V1_WAV_REL_L2 (relative L2; the sums run in other orders
+# through 9 Euler steps of 22 layers and BigVGAN's six stages); the
+# reference mels (host numpy on both sides) within V1_REF_MEL_ATOL; the
+# x-vector through the synthetic CAM++ graph within V1_XVEC_ATOL; the
+# Whisper-VQ codes agree at V1_CODE_AGREEMENT or more, and where two codes
+# differ their distances lie within V1_NEAR_TIE_REL of each other.
+V1_PARITY_CODES = 50
+V1_MEL_REL_L2 = 1e-4
+V1_WAV_REL_L2 = 1e-3
+V1_REF_MEL_ATOL = 1e-5
+V1_XVEC_ATOL = 1e-4
+V1_CODE_AGREEMENT = 0.99
+V1_NEAR_TIE_REL = 1e-4
+
+
+def v1_specs(cfg, enc):
+    """The 25 Hz checkpoint's tensors (the reference names the port's
+    loaders read) for the codec config ``cfg`` and the Whisper-VQ config
+    ``enc``: weights N(0, 1/fan_in), BigVGAN's convs included (fan_in
+    C_in x K, so no conv gains ~sqrt(C_in) and the waveform stays off the
+    clamp), norms ones, biases zeros, SnakeBeta log-parameters N(0, 0.01),
+    the Whisper-VQ codebook N(0, 1/16) so that codes vary."""
+    dit, bv = cfg.dit, cfg.bigvgan
+    h, qd, ff = dit.hidden_size, dit.num_attention_heads * dit.head_dim, dit.hidden_size * dit.ff_mult
+    p = "decoder.dit."
+    specs = [(p + "time_embed.time_mlp.0.weight", (h, 256), 256),
+             (p + "time_embed.time_mlp.0.bias", (h,), "zeros"),
+             (p + "time_embed.time_mlp.2.weight", (h, h), h),
+             (p + "time_embed.time_mlp.2.bias", (h,), "zeros"),
+             (p + "text_embed.codec_embed.weight", (dit.num_embeds + 1, dit.emb_dim), 1)]
+    in_dim = dit.mel_dim + dit.enc_dim + dit.emb_dim + dit.enc_emb_dim
+    specs += [(p + "input_embed.proj.weight", (h, in_dim), in_dim),
+              (p + "input_embed.proj.bias", (h,), "zeros")]
+    specs += [(p + "input_embed.spk_encoder." + name[len("speaker_encoder."):], shape, init)
+              for name, shape, init in speaker_specs(dit.spk_encoder_config())]
+    for i in range(dit.num_hidden_layers):
+        b = f"{p}transformer_blocks.{i}."
+        for name, n_out, n_in in (("attn_norm.linear", 6 * h, h), ("attn.to_q", qd, h),
+                                  ("attn.to_k", qd, h), ("attn.to_v", qd, h),
+                                  ("attn.to_out.0", h, qd), ("ff.ff.0", ff, h),
+                                  ("ff.ff.3", h, ff)):
+            specs += [(b + name + ".weight", (n_out, n_in), n_in),
+                      (b + name + ".bias", (n_out,), "zeros")]
+    specs += [(p + "norm_out.linear.weight", (2 * h, h), h),
+              (p + "norm_out.linear.bias", (2 * h,), "zeros"),
+              (p + "proj_out.weight", (dit.mel_dim, h), h),
+              (p + "proj_out.bias", (dit.mel_dim,), "zeros")]
+
+    g = "decoder.bigvgan."
+    c0 = bv.upsample_initial_channel
+    specs += [(g + "conv_pre.weight", (c0, bv.mel_dim, 5), bv.mel_dim * 5),
+              (g + "conv_pre.bias", (c0,), "zeros")]
+    n_res = len(bv.resblock_kernel_sizes)
+    for li, k in enumerate(bv.upsample_kernel_sizes):
+        cin, cout = c0 // 2 ** li, c0 // 2 ** (li + 1)
+        specs += [(g + f"ups.{li}.0.weight", (cin, cout, k), cin * k),
+                  (g + f"ups.{li}.0.bias", (cout,), "zeros")]
+        for bi in range(n_res):
+            rb = f"{g}resblocks.{li * n_res + bi}."
+            ks, dil = bv.resblock_kernel_sizes[bi], bv.resblock_dilation_sizes[bi]
+            for c in (1, 2):
+                for j in range(len(dil)):
+                    specs += [(rb + f"convs{c}.{j}.weight", (cout, cout, ks), cout * ks),
+                              (rb + f"convs{c}.{j}.bias", (cout,), "zeros")]
+            for j in range(2 * len(dil)):
+                specs += [(rb + f"activations.{j}.act.{n}", (cout,), "snake")
+                          for n in ("alpha", "beta")]
+            if li <= 1:
+                specs += [(rb + "pre_conv.weight", (cout, cout, ks), cout * ks),
+                          (rb + "pre_conv.bias", (cout,), "zeros")]
+                specs += [(rb + f"pre_act.act.{n}", (cout,), "snake") for n in ("alpha", "beta")]
+    c_last = c0 // 2 ** len(bv.upsample_rates)
+    specs += [(g + f"activation_post.act.{n}", (c_last,), "snake") for n in ("alpha", "beta")]
+    specs.append((g + "conv_post.weight", (1, c_last, 7), c_last * 7))
+
+    e = "encoder.tokenizer."
+    d = enc.n_state
+    specs += [(e + "conv1.weight", (d, enc.n_mels, 3), enc.n_mels * 3),
+              (e + "conv1.bias", (d,), "zeros"),
+              (e + "conv2.weight", (d, d, 3), d * 3), (e + "conv2.bias", (d,), "zeros")]
+    for i in range(enc.audio_vq_layers):
+        b = f"{e}blocks.{i}."
+        specs += [(b + "attn_ln.weight", (d,), "ones"), (b + "attn_ln.bias", (d,), "zeros"),
+                  (b + "mlp_ln.weight", (d,), "ones"), (b + "mlp_ln.bias", (d,), "zeros"),
+                  (b + "attn.key.weight", (d, d), d),
+                  (b + "mlp.0.weight", (4 * d, d), d), (b + "mlp.0.bias", (4 * d,), "zeros"),
+                  (b + "mlp.2.weight", (d, 4 * d), 4 * d), (b + "mlp.2.bias", (d,), "zeros")]
+        for name in ("query", "value", "out"):
+            specs += [(b + f"attn.{name}.weight", (d, d), d),
+                      (b + f"attn.{name}.bias", (d,), "zeros")]
+    ds = enc.audio_vq_ds_rate
+    specs += [(e + "audio_vq_downsample.weight", (d, d, ds), d * ds),
+              (e + "audio_vq_downsample.bias", (d,), "zeros"),
+              (e + "audio_quantizer.rvqs.0.embed",
+               (1, enc.audio_vq_codebook_size, enc.audio_vq_codebook_dim), 16),
+              (e + "audio_quantizer.rvqs.0.layers.0.project_in.weight",
+               (enc.audio_vq_codebook_dim, d), d),
+              (e + "audio_quantizer.rvqs.0.layers.0.project_in.bias",
+               (enc.audio_vq_codebook_dim,), "zeros")]
+    return specs
+
+
+def sinusoid_positions(n_ctx: int, d: int):
+    """Whisper's sinusoid position table [n_ctx, d] (float32)."""
+    import numpy as np
+
+    half = d // 2
+    scaled = np.arange(n_ctx)[:, None] * np.exp(-np.log(10000) / (half - 1)
+                                                * np.arange(half))[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+# A minimal ONNX writer: the protobuf wire format of the few ModelProto /
+# GraphProto / NodeProto / TensorProto / AttributeProto fields a graph needs
+# (field numbers from the public onnx.proto).
+
+def _pb_varint(n: int) -> bytes:
+    n %= 1 << 64  # a negative int64 as its two's complement
+    out = b""
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if not n:
+            return out + bytes([b])
+        out += bytes([b | 0x80])
+
+
+def _pb_ld(field: int, payload: bytes) -> bytes:
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def _pb_vi(field: int, value: int) -> bytes:
+    return _pb_varint(field << 3) + _pb_varint(value)
+
+
+def _onnx_tensor(name: str, arr) -> bytes:
+    import numpy as np
+
+    dtype = {np.dtype(np.float32): 1, np.dtype(np.int64): 7}[arr.dtype]
+    return (b"".join(_pb_vi(1, d) for d in arr.shape) + _pb_vi(2, dtype)
+            + _pb_ld(8, name.encode()) + _pb_ld(9, arr.tobytes()))
+
+
+def _onnx_attr(name: str, value) -> bytes:
+    key = _pb_ld(1, name.encode())
+    if isinstance(value, float):
+        return _pb_ld(5, key + _pb_varint((2 << 3) | 5) + struct.pack("<f", value))
+    if isinstance(value, int):
+        return _pb_ld(5, key + _pb_vi(3, value))
+    return _pb_ld(5, key + b"".join(_pb_vi(8, v) for v in value))
+
+
+def _onnx_node(op: str, inputs, outputs, **attrs) -> bytes:
+    return _pb_ld(1, b"".join(_pb_ld(1, s.encode()) for s in inputs)
+                  + b"".join(_pb_ld(2, s.encode()) for s in outputs) + _pb_ld(4, op.encode())
+                  + b"".join(_onnx_attr(k, v) for k, v in attrs.items()))
+
+
+def campplus_graph(seed: int, out_dim: int, width: int = 512) -> bytes:
+    """A CAM++-style x-vector graph ([1, T, 80] fbank → [1, out_dim]):
+    Transpose, Conv + BatchNormalization + Relu, a dilated grouped Conv +
+    Relu, mean and standard-deviation pooling, a Shape chain (Shape → Gather
+    → Unsqueeze → Concat → Reshape) that flattens the statistics, and Gemm.
+    Random weights from a numpy seed."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+
+    def w(*shape, fan):
+        return (r.standard_normal(shape) / np.sqrt(fan)).astype(np.float32)
+
+    inits = {
+        "w1": w(width, 80, 5, fan=400), "b1": np.zeros(width, np.float32),
+        "bn_s": (1 + 0.1 * r.standard_normal(width)).astype(np.float32),
+        "bn_b": (0.1 * r.standard_normal(width)).astype(np.float32),
+        "bn_m": (0.1 * r.standard_normal(width)).astype(np.float32),
+        "bn_v": ((1 + 0.1 * r.standard_normal(width)) ** 2).astype(np.float32),
+        "w2": w(width, width // 4, 3, fan=3 * width // 4), "b2": np.zeros(width, np.float32),
+        "wg": w(out_dim, 2 * width, fan=2 * width), "bg": np.zeros(out_dim, np.float32),
+        "i0": np.asarray(0, np.int64), "m1": np.asarray([-1], np.int64),
+    }
+    nodes = [
+        _onnx_node("Transpose", ["x"], ["xt"], perm=[0, 2, 1]),
+        _onnx_node("Conv", ["xt", "w1", "b1"], ["h1"], pads=[2, 2], kernel_shape=[5]),
+        _onnx_node("BatchNormalization", ["h1", "bn_s", "bn_b", "bn_m", "bn_v"], ["h2"],
+                   epsilon=1e-5),
+        _onnx_node("Relu", ["h2"], ["h3"]),
+        _onnx_node("Conv", ["h3", "w2", "b2"], ["h4"], pads=[2, 2], dilations=[2], group=4,
+                   kernel_shape=[3]),
+        _onnx_node("Relu", ["h4"], ["h5"]),
+        _onnx_node("ReduceMean", ["h5"], ["mu_k"], axes=[2], keepdims=1),
+        _onnx_node("Sub", ["h5", "mu_k"], ["dev"]),
+        _onnx_node("Mul", ["dev", "dev"], ["dev2"]),
+        _onnx_node("ReduceMean", ["dev2"], ["var"], axes=[-1], keepdims=0),
+        _onnx_node("Sqrt", ["var"], ["std"]),
+        _onnx_node("ReduceMean", ["h5"], ["mu"], axes=[2], keepdims=0),
+        _onnx_node("Concat", ["mu", "std"], ["stats"], axis=1),
+        _onnx_node("Shape", ["stats"], ["shp"]),
+        _onnx_node("Gather", ["shp", "i0"], ["n"], axis=0),
+        _onnx_node("Unsqueeze", ["n"], ["n1"], axes=[0]),
+        _onnx_node("Concat", ["n1", "m1"], ["flat"], axis=0),
+        _onnx_node("Reshape", ["stats", "flat"], ["stats2"]),
+        _onnx_node("Gemm", ["stats2", "wg", "bg"], ["y"], transB=1, alpha=1.0, beta=1.0),
+    ]
+    graph = (b"".join(nodes) + b"".join(_pb_ld(5, _onnx_tensor(k, v)) for k, v in inits.items())
+             + _pb_ld(11, _pb_ld(1, b"x")) + _pb_ld(12, _pb_ld(1, b"y")))
+    return _pb_vi(1, 8) + _pb_ld(7, graph)
+
+
+def write_v1_checkpoint(model_dir: str, cfg, enc, seed: int, device: str = "cuda") -> None:
+    """A 25 Hz tokenizer directory: the decoder in ``model.safetensors`` and
+    Whisper-VQ in ``encoder.safetensors`` (bf16, ``v1_specs`` plus Whisper's
+    sinusoid positions, the quantizer's input centred by
+    ``centre_vq_input``), ``config.json`` and a CAM++-style
+    ``campplus.onnx`` (``campplus_graph``)."""
+    import torch
+
+    from qwen_tts_tpu_torch.io.safetensors import save_file
+
+    os.makedirs(model_dir, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    tensors = make_tensors(v1_specs(cfg, enc), torch.bfloat16, gen)
+    tensors["encoder.tokenizer.positional_embedding"] = torch.from_numpy(
+        sinusoid_positions(enc.n_ctx, enc.n_state)).to(torch.bfloat16)
+    encoder = {k: tensors.pop(k) for k in list(tensors) if k.startswith("encoder.")}
+    save_file(tensors, os.path.join(model_dir, "model.safetensors"))
+    save_file(centre_vq_input(encoder, enc, device), os.path.join(model_dir, "encoder.safetensors"))
+    with open(os.path.join(model_dir, "campplus.onnx"), "wb") as f:
+        f.write(campplus_graph(seed, cfg.dit.enc_emb_dim))
+    with open(os.path.join(model_dir, "config.json"), "w") as f:
+        json.dump({"model_type": "qwen3_tts_tokenizer_25hz",
+                   "encoder_config": dataclasses.asdict(enc),
+                   "decoder_config": {"dit_config": dataclasses.asdict(cfg.dit),
+                                      "bigvgan_config": dataclasses.asdict(cfg.bigvgan)},
+                   **{k: getattr(cfg, k) for k in (
+                       "input_sample_rate", "output_sample_rate", "decode_upsample_rate",
+                       "encode_downsample_rate")}}, f)
+
+
+def centre_vq_input(tensors: dict, enc, device: str) -> dict:
+    """Whisper-VQ's tensors with the quantizer's input-projection bias set
+    so that the projected features of phase 11's clips (at 16 kHz) average
+    zero. Random weights give every frame a large shared component, and
+    with it one code for every frame of every clip (one distinct code in
+    388 frames at the published widths on an NVIDIA H100); centred, the
+    codes follow what varies from frame to frame."""
+    import torch
+
+    from qwen_tts_tpu_torch.audio import resample
+    from qwen_tts_tpu_torch.models import whisper_vq as wvq
+
+    class Tensors(dict):  # the reader interface load_whisper_vq takes
+        def get_f32(self, name):
+            return self[name].float()
+
+    params = wvq.load_whisper_vq(Tensors(tensors), enc, device)
+    clips = [resample(w, rate, wvq.SAMPLE_RATE) for w, rate in clone_clips()]
+    with torch.inference_mode():
+        feats = torch.cat(wvq.encode_features(params, enc, clips))
+        mean = (feats @ params["vq_proj_in_w"] + params["vq_proj_in_b"]).mean(0)
+    name = "encoder.tokenizer.audio_quantizer.rvqs.0.layers.0.project_in.bias"
+    return dict(tensors, **{name: (tensors[name].float() - mean.cpu()).to(tensors[name].dtype)})
+
+
+def v1_flops(cfg, b: int, t_code: int, num_steps: int = 10, cfg_doubled: bool = True):
+    """(DiT, BigVGAN) floating-point operations of one decode of ``b`` rows
+    of ``t_code`` codes: multiply-adds count 2. The DiT: every linear per
+    token (the AdaLN and time MLPs per row), the block-local attention's
+    scores and products over each block's key window, num_steps - 1
+    forwards on a CFG-doubled batch; ECAPA left out. BigVGAN: every conv
+    and transposed conv, and the anti-aliasing filters' taps (12 up, 12
+    down a sample per activation)."""
+    dit, bv = cfg.dit, cfg.bigvgan
+    rows = 2 * b if cfg_doubled else b
+    t_mel = t_code * dit.repeats
+    tokens = rows * t_mel
+    h, qd = dit.hidden_size, dit.num_attention_heads * dit.head_dim
+    in_dim = dit.mel_dim + dit.enc_dim + dit.emb_dim + dit.enc_emb_dim
+    per_token = 2 * (in_dim * h + h * dit.mel_dim)
+    per_row = 2 * (256 * h + h * h + 2 * h * h)
+    nb = -(-t_mel // dit.block_size)
+    attn = 0
+    for i in range(dit.num_hidden_layers):
+        per_token += 2 * (4 * h * qd + 2 * h * h * dit.ff_mult)
+        per_row += 2 * 6 * h * h
+        keys = (1 + (i in dit.look_backward_layers) + (i in dit.look_ahead_layers)) * dit.block_size
+        attn += 2 * 2 * rows * dit.num_attention_heads * nb * dit.block_size * keys * dit.head_dim
+    dit_flops = (num_steps - 1) * (tokens * per_token + rows * per_row + attn)
+
+    t, c = t_mel, bv.upsample_initial_channel
+    big = 2 * b * t * c * bv.mel_dim * 5
+
+    def act(ch, length):
+        return 2 * b * ch * length * 24
+
+    for li, (rate, k) in enumerate(zip(bv.upsample_rates, bv.upsample_kernel_sizes)):
+        big += 2 * b * t * c * (c // 2) * k
+        t, c = t * rate, c // 2
+        for ks, dil in zip(bv.resblock_kernel_sizes, bv.resblock_dilation_sizes):
+            convs = 2 * len(dil) + (li <= 1)
+            big += convs * 2 * b * t * c * c * ks + (convs) * act(c, t)
+    big += act(c, t) + 2 * b * t * c * 7
+    return dit_flops, big
+
+
+def _rel_l2(a, b) -> float:
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def v1_inputs(cfg, b: int, t_code: int, ref_frames: int, seed: int):
+    """Random codes [b, t_code] (ids 0..num_embeds), unit x-vectors and
+    reference mels of ``ref_frames`` frames from ``v1_ref_mel`` of noisy
+    voiced clips, from a numpy seed; a payload ``decode`` takes."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch.models.whisper_vq import HOP, v1_ref_mel
+
+    r = np.random.default_rng(seed)
+    n = ref_frames * HOP
+    t = np.arange(n) / 16000
+    out = []
+    for _ in range(b):
+        wav = (0.2 * np.sin(2 * np.pi * r.uniform(90, 220) * t)
+               + 0.02 * r.standard_normal(n)).astype(np.float32)
+        xv = r.standard_normal(cfg.dit.enc_emb_dim).astype(np.float32)
+        out.append({"audio_codes": r.integers(0, cfg.dit.num_embeds + 1, t_code),
+                    "xvectors": xv / np.linalg.norm(xv),
+                    "ref_mels": v1_ref_mel(wav)[:ref_frames]})
+    return out
+
+
+def v1_stages(tok, payload, noise=None, generator=None):
+    """``decode``'s work in its two stages, timed by CUDA events on the card:
+    (mel, waveform before the clamp, DiT ms, BigVGAN ms). The batch and the
+    initial noise as ``decode`` makes them unless ``noise`` is given."""
+    import torch
+
+    from qwen_tts_tpu_torch.models import codec_v1
+    from qwen_tts_tpu_torch.utils import full_f32
+
+    _, codes, xv, mel = tok.batch_v1([p["audio_codes"] for p in payload],
+                                     [p["xvectors"] for p in payload],
+                                     [p["ref_mels"] for p in payload])
+    codes = torch.as_tensor(codes, device=tok.device).clamp(min=0)
+    cuda = tok.device.type == "cuda"
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if cuda else None
+    with torch.inference_mode(), full_f32():
+        if cuda:
+            ev[0].record()
+        m = codec_v1.dit_sample(tok.params["dit"], tok.cfg.dit, codes, mel, xv, generator,
+                                noise=noise)
+        if cuda:
+            ev[1].record()
+        wav = codec_v1.bigvgan_forward(tok.params["bigvgan"], tok.cfg.bigvgan, m, clamp=False)
+        if cuda:
+            ev[2].record()
+            torch.cuda.synchronize()
+    times = (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])) if cuda else (0.0, 0.0)
+    return m.cpu(), wav.cpu(), *times
+
+
+def check_v1_parity(model_dir: str, smi: str) -> dict:
+    """f32 on the card and on the CPU: the DiT's mel and BigVGAN's waveform
+    before the clamp at B=1 x V1_PARITY_CODES codes under one initial noise,
+    the Whisper-VQ codes, reference mels and x-vectors of phase 11's clips
+    resampled to 16 kHz. Returns the card's f32 tokenizer and the parity
+    payload."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.audio import resample
+    from qwen_tts_tpu_torch.models import codec_v1
+    from qwen_tts_tpu_torch.models import whisper_vq as wvq
+    from qwen_tts_tpu_torch.tokenizer import Qwen3TTSTokenizer
+
+    t0 = time.perf_counter()
+    card = Qwen3TTSTokenizer.from_pretrained(model_dir)
+    cpu = Qwen3TTSTokenizer.from_pretrained(model_dir, device="cpu")
+    log(f"25 Hz: f32 tokenizer loaded on the card ({card.device}) and the CPU in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = card.cfg
+    payload = v1_inputs(cfg, 1, V1_PARITY_CODES, V1_REF_FRAMES, seed=21)
+    noise = codec_v1.initial_noise(1, V1_PARITY_CODES * cfg.dit.repeats, cfg.dit.mel_dim,
+                                   torch.Generator().manual_seed(5))
+    mel_card, wav_card, dit_ms, big_ms = v1_stages(card, payload, noise=noise)
+    t0 = time.perf_counter()
+    mel_cpu, wav_cpu, _, _ = v1_stages(cpu, payload, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    rel_mel, rel_wav = _rel_l2(mel_card, mel_cpu), _rel_l2(wav_card, wav_cpu)
+    inside = (wav_cpu.abs() < 1).float().mean().item()
+    log(f"25 Hz decode f32, card vs CPU, B=1 x {V1_PARITY_CODES} codes, shared noise: mel "
+        f"relative L2 {rel_mel:.3g} (tol {V1_MEL_REL_L2}), waveform before the clamp "
+        f"{rel_wav:.3g} (tol {V1_WAV_REL_L2}), max |wav| {wav_cpu.abs().max().item():.3g}, "
+        f"share inside the clamp {inside:.4f}; card DiT {dit_ms:.1f} ms, BigVGAN "
+        f"{big_ms:.1f} ms (f32, events); CPU {cpu_s:.1f} s | {smi}")
+    if not (rel_mel <= V1_MEL_REL_L2 and rel_wav <= V1_WAV_REL_L2):
+        fail("25 Hz: card and CPU f32 decodes disagree")
+    if not torch.isfinite(wav_card).all():
+        fail("25 Hz: the card's waveform is not finite")
+    wavs, sr = card.decode(payload, seed=3)
+    want = V1_PARITY_CODES * cfg.samples_per_code
+    if sr != 24000 or wavs[0].shape != (want,) or not np.isfinite(wavs[0]).all():
+        fail(f"25 Hz: decode gave {wavs[0].shape} at {sr} Hz (want {want} samples at 24000)")
+
+    clips = [resample(w, rate, wvq.SAMPLE_RATE) for w, rate in clone_clips()]
+    got = card.encode(clips, wvq.SAMPLE_RATE)
+    t0 = time.perf_counter()
+    want = cpu.encode(clips, wvq.SAMPLE_RATE)
+    cpu_s = time.perf_counter() - t0
+    enc_cfg, enc_params = cpu._encoder
+    equal = total = 0
+    gaps = []
+    feats = wvq.encode_features(enc_params, enc_cfg, clips)
+    for a, b, f in zip(got["audio_codes"], want["audio_codes"], feats):
+        if a.shape != b.shape:
+            fail(f"25 Hz: code counts differ card {a.shape} CPU {b.shape}")
+        equal += int((a == b).sum())
+        total += a.size
+        if (a != b).any():
+            d = wvq.vq_distances(enc_params, f).numpy()
+            rows = np.nonzero(a != b)[0]
+            da, db = d[rows, a[rows]], d[rows, b[rows]]
+            gaps += list(np.abs(da - db) / np.maximum(np.abs(da), np.abs(db)))
+    agreement = equal / total
+    worst = max(gaps, default=0.0)
+    mel_err = max(float(np.abs(a - b).max()) for a, b in zip(got["ref_mels"], want["ref_mels"]))
+    xv_err = max(float(np.abs(a - b).max()) for a, b in zip(got["xvectors"], want["xvectors"]))
+    log(f"25 Hz encode f32, card vs CPU, {len(clips)} clips at 16 kHz "
+        f"({[c.shape[0] for c in want['audio_codes']]} codes): Whisper-VQ agreement "
+        f"{agreement:.6f} (min {V1_CODE_AGREEMENT}), {len(gaps)} differing code(s), largest "
+        f"relative distance gap {worst:.3g} (near-tie limit {V1_NEAR_TIE_REL}); "
+        f"{len(set(np.concatenate(got['audio_codes']).tolist()))} distinct codes; reference "
+        f"mels max |diff| {mel_err:.3g} (tol {V1_REF_MEL_ATOL}); x-vectors "
+        f"({got['xvectors'][0].shape[0]} wide, CAM++-style graph) max |diff| {xv_err:.3g} "
+        f"(tol {V1_XVEC_ATOL}); CPU encode {cpu_s:.1f} s")
+    if agreement < V1_CODE_AGREEMENT or worst > V1_NEAR_TIE_REL:
+        fail("25 Hz: card and CPU Whisper-VQ codes disagree beyond near-ties")
+    if not (mel_err <= V1_REF_MEL_ATOL and xv_err <= V1_XVEC_ATOL):
+        fail("25 Hz: card and CPU reference mels or x-vectors disagree")
+    return {"card": card, "clips": clips, "payload": payload, "noise": noise,
+            "mel": mel_card, "wav": wav_card}
+
+
+def phase_tokenizer_25hz(smi: str, cfg=None, enc=None) -> None:
+    """Phase 14: the 25 Hz tokenizer at the JAX package's widths
+    (``CodecV1Config()``, ``WhisperVQConfig()``), random bf16 weights. f32
+    card against CPU (``check_v1_parity``); then the bf16 decode at
+    V1_BATCH x V1_CODES codes timed (wall, DiT against BigVGAN by events,
+    audio seconds, RTF, peak memory) beside its compute bound, the f32
+    encode of the four clips timed, and one profiled decode (top ops by
+    device time, idle share). bf16 against f32 is reported, not held.
+    ``cfg`` / ``enc`` replace the widths (a rehearsal on the CPU)."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen_tts_tpu_torch.config import CodecV1Config
+    from qwen_tts_tpu_torch.models.whisper_vq import WhisperVQConfig
+    from qwen_tts_tpu_torch.tokenizer import Qwen3TTSTokenizer
+
+    cfg, enc = cfg or CodecV1Config(), enc or WhisperVQConfig()
+    model_dir = tempfile.mkdtemp(prefix="qtts_v1_")
+    try:
+        t0 = time.perf_counter()
+        write_v1_checkpoint(model_dir, cfg, enc, seed=2525)
+        n_params = sum(math.prod(s) for _, s, _ in v1_specs(cfg, enc))
+        size = sum(os.path.getsize(os.path.join(model_dir, f)) for f in os.listdir(model_dir)
+                   if f.endswith(".safetensors"))
+        log(f"25 Hz: checkpoint of {n_params / 1e9:.3f} B parameters ({size / 2**30:.2f} GiB "
+            f"bf16: DiT {cfg.dit.num_hidden_layers} x {cfg.dit.hidden_size}, BigVGAN "
+            f"{cfg.bigvgan.upsample_initial_channel} ch x {cfg.bigvgan.upsample_rates}, "
+            f"Whisper-VQ {enc.audio_vq_layers} x {enc.n_state}) written in "
+            f"{time.perf_counter() - t0:.1f} s")
+        counters = _counters()
+        for c in counters.values():
+            c.launches = 0
+        parity = check_v1_parity(model_dir, smi)
+
+        bf16 = Qwen3TTSTokenizer.from_pretrained(model_dir, dtype=torch.bfloat16)
+        _, wav16, _, _ = v1_stages(bf16, parity["payload"], noise=parity["noise"])
+        log(f"25 Hz decode bf16 vs f32 on the card (reported, not held): waveform before the "
+            f"clamp relative L2 {_rel_l2(wav16, parity['wav']):.3g} | {smi}")
+        payload = v1_inputs(cfg, V1_BATCH, V1_CODES, V1_REF_FRAMES, seed=22)
+        bf16.decode(payload, seed=0)  # warm-up: cuDNN's plan search at these shapes
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i in range(3):
+            t0 = time.perf_counter()
+            wavs, sr = bf16.decode(payload, seed=i)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        samples = sum(w.shape[0] for w in wavs)
+        want = V1_CODES * cfg.samples_per_code
+        if any(w.shape != (want,) or not np.isfinite(w).all() for w in wavs):
+            fail(f"25 Hz: bf16 decode shapes {[w.shape for w in wavs]} (want {want})")
+        audio_s = samples / sr
+        stages = [v1_stages(bf16, payload, generator=torch.Generator("cuda").manual_seed(i))[2:]
+                  for i in range(3)]
+        dit_flops, big_flops = v1_flops(cfg, V1_BATCH, V1_CODES)
+        dit_ms = [s[0] for s in stages]
+        big_ms = [s[1] for s in stages]
+        wall = statistics.median(walls)
+        log(f"25 Hz decode bf16, B={V1_BATCH} x {V1_CODES} codes (ref mel {V1_REF_FRAMES} "
+            f"frames, 10 Euler steps, CFG): wall median {wall * 1e3:.1f} ms "
+            f"({_spread([w * 1e3 for w in walls], '{:.1f}')}), {audio_s:.1f} s of audio "
+            f"({samples} samples), RTF {wall / audio_s:.5f}, peak memory {peak:.2f} GiB | {smi}")
+        log(f"25 Hz decode bf16 stages (events, 3 runs): DiT {statistics.median(dit_ms):.1f} ms "
+            f"({_spread(dit_ms, '{:.1f}')}), BigVGAN {statistics.median(big_ms):.1f} ms "
+            f"({_spread(big_ms, '{:.1f}')}); bounds at the bf16 peak "
+            f"({H100_BF16_FLOPS / 1e12:.0f} TFLOP/s): DiT {dit_flops / 1e12:.2f} TFLOP a call "
+            f"(9 forwards) -> {dit_flops / H100_BF16_FLOPS * 1e3:.2f} ms, BigVGAN "
+            f"{big_flops / 1e12:.2f} TFLOP -> {big_flops / H100_BF16_FLOPS * 1e3:.2f} ms | {smi}")
+        launches = {k: c.launches for k, c in counters.items()}
+        log(f"25 Hz: launches of the port's kernels over the phase {launches} (none is on "
+            f"this path)")
+
+        card, clips = parity["card"], parity["clips"]
+        card.encode(clips, 16000)  # warm-up
+        enc_walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            card.encode(clips, 16000)
+            torch.cuda.synchronize()
+            enc_walls.append(time.perf_counter() - t0)
+        clip_s = sum(c.shape[0] for c in clips) / 16000
+        log(f"25 Hz encode f32 (Whisper-VQ, reference mels, x-vectors) of {len(clips)} clips, "
+            f"{clip_s:.1f} s of audio: wall median {statistics.median(enc_walls) * 1e3:.1f} ms "
+            f"({_spread([w * 1e3 for w in enc_walls], '{:.1f}')}) | {smi}")
+
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            bf16.decode(payload, seed=0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        device = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.self_device_time_total, reverse=True)
+        busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+        if busy_ms == 0:
+            log("25 Hz profile: the profiler saw no device time (not measured)")
+        else:
+            log(f"25 Hz profile, one bf16 decode B={V1_BATCH} x {V1_CODES}: wall {wall_ms:.1f} "
+                f"ms (profiler on), device busy {busy_ms:.1f} ms, idle share "
+                f"{1 - busy_ms / wall_ms:.3f}; against the unprofiled median "
+                f"{1 - busy_ms / (wall * 1e3):.3f} | {smi}")
+            for e in device[:10]:
+                log(f"  25 Hz profile op: {e.self_device_time_total / 1e3:8.2f} ms "
+                    f"({e.self_device_time_total / 1e3 / busy_ms:.3f}) {e.count:6d}x  "
+                    f"{e.key[:90]}")
+    finally:
+        shutil.rmtree(model_dir, ignore_errors=True)
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -4582,6 +5262,7 @@ def main() -> int:
         clone = timed("clone", phase_clone, base_dir, smi)
         serving_engines = timed("serving engines", phase_serving, model_dir, base_dir, smi)
         timed("fast modes", phase_fast_modes, model_dir, smi)
+        timed("25 Hz tokenizer", phase_tokenizer_25hz, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.

@@ -1,9 +1,10 @@
 """Configuration dataclasses of the PyTorch port.
 
 The port's own copy of ``qwen_tts_tpu/config.py`` (talker, code predictor,
-12 Hz codec with its Mimi encoder, speaker encoder and top-level TTS configs
-(Base checkpoints' ``speaker_encoder_config`` included); the 25 Hz tokenizer's
-configs wait for the port of that tokenizer). Plain frozen dataclasses that
+12 Hz codec with its Mimi encoder, speaker encoder, the 25 Hz tokenizer's DiT
+and BigVGAN, and top-level TTS configs, Base checkpoints'
+``speaker_encoder_config`` included; the 25 Hz encoder's ``WhisperVQConfig``
+lives in ``models/whisper_vq.py``, as in the JAX package). Plain frozen dataclasses that
 mirror the reference configs
 (qwen_tts/core/models/configuration_qwen3_tts.py and
 qwen_tts/core/tokenizer_12hz/configuration_qwen3_tts_tokenizer_v2.py).
@@ -331,6 +332,124 @@ class SpeakerEncoderConfig:
                 d[k] = tuple(d[k])
         keys = {f.name for f in dataclasses.fields(cls)}
         return cls(**{k: v for k, v in d.items() if k in keys})
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    """25 Hz flow-matching DiT (V1 decoder stage 1).
+
+    Reference: configuration_qwen3_tts_tokenizer_v1.py (DiT defaults)."""
+
+    hidden_size: int = 1024
+    num_hidden_layers: int = 22
+    num_attention_heads: int = 16
+    ff_mult: int = 2
+    emb_dim: int = 512
+    head_dim: int = 64
+    rope_theta: float = 10000.0
+    block_size: int = 24
+    look_ahead_layers: Tuple[int, ...] = (10,)
+    look_backward_layers: Tuple[int, ...] = (0, 20)
+    repeats: int = 2
+    num_embeds: int = 8193
+    mel_dim: int = 80
+    enc_emb_dim: int = 192
+    enc_dim: int = 128
+    enc_channels: Tuple[int, ...] = (256, 256, 256, 256, 768)
+    enc_kernel_sizes: Tuple[int, ...] = (5, 3, 3, 3, 1)
+    enc_dilations: Tuple[int, ...] = (1, 2, 3, 4, 1)
+    enc_attention_channels: int = 64
+    enc_res2net_scale: int = 2
+    enc_se_channels: int = 64
+
+    def spk_encoder_config(self) -> SpeakerEncoderConfig:
+        """The ECAPA-TDNN that summarises the reference mel."""
+        return SpeakerEncoderConfig(
+            mel_dim=self.mel_dim,
+            enc_dim=self.enc_dim,
+            enc_channels=self.enc_channels,
+            enc_kernel_sizes=self.enc_kernel_sizes,
+            enc_dilations=self.enc_dilations,
+            enc_attention_channels=self.enc_attention_channels,
+            enc_res2net_scale=self.enc_res2net_scale,
+            enc_se_channels=self.enc_se_channels,
+        )
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "DiTConfig":
+        d = dict(d)
+        for k in ("look_ahead_layers", "look_backward_layers", "enc_channels",
+                  "enc_kernel_sizes", "enc_dilations"):
+            if k in d:
+                d[k] = tuple(d[k])
+        keys = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in keys})
+
+
+@dataclasses.dataclass(frozen=True)
+class BigVGANConfig:
+    """25 Hz BigVGAN mel vocoder (V1 decoder stage 2)."""
+
+    mel_dim: int = 80
+    upsample_initial_channel: int = 1536
+    resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11)
+    resblock_dilation_sizes: Tuple[Tuple[int, ...], ...] = (
+        (1, 3, 5), (1, 3, 5), (1, 3, 5)
+    )
+    upsample_rates: Tuple[int, ...] = (5, 3, 2, 2, 2, 2)
+    upsample_kernel_sizes: Tuple[int, ...] = (11, 7, 4, 4, 4, 4)
+
+    @property
+    def total_upsample(self) -> int:
+        """Waveform samples a mel frame makes."""
+        total = 1
+        for r in self.upsample_rates:
+            total *= r
+        return total
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "BigVGANConfig":
+        d = dict(d)
+        for k in ("resblock_kernel_sizes", "upsample_rates", "upsample_kernel_sizes"):
+            if k in d:
+                d[k] = tuple(d[k])
+        if "resblock_dilation_sizes" in d:
+            d["resblock_dilation_sizes"] = tuple(tuple(x) for x in d["resblock_dilation_sizes"])
+        keys = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in keys})
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecV1Config:
+    """Top-level 25 Hz tokenizer config (decode side).
+
+    Reference: configuration_qwen3_tts_tokenizer_v1.py top config."""
+
+    dit: DiTConfig = dataclasses.field(default_factory=DiTConfig)
+    bigvgan: BigVGANConfig = dataclasses.field(default_factory=BigVGANConfig)
+    input_sample_rate: int = 16000
+    output_sample_rate: int = 24000
+    decode_upsample_rate: int = 960
+    encode_downsample_rate: int = 640
+
+    @property
+    def samples_per_code(self) -> int:
+        """Waveform samples a code really makes: ``repeats`` mel frames of
+        ``total_upsample`` samples each (480 at the defaults, where
+        ``decode_upsample_rate`` says 960)."""
+        return self.dit.repeats * self.bigvgan.total_upsample
+
+    @classmethod
+    def from_dict(cls, d: Mapping) -> "CodecV1Config":
+        d = dict(d)
+        dec = d.pop("decoder_config", None) or {}
+        keys = {f.name for f in dataclasses.fields(cls)}
+        kw = {k: v for k, v in d.items() if k in keys and k not in ("dit", "bigvgan")}
+        return cls(
+            dit=DiTConfig.from_dict(dec.get("dit_config") or {}),
+            bigvgan=BigVGANConfig.from_dict(dec.get("bigvgan_config") or {}),
+            **kw,
+        )
 
 
 @dataclasses.dataclass(frozen=True)

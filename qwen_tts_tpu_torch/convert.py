@@ -6,6 +6,12 @@ on the JAX side, so this module needs neither jax nor ``ml_dtypes``) and
 returns the port's trees: the same keys, nesting and layouts, as tensors on
 one device. Both packages then compute the same thing.
 
+``convert_codec_v1_tree`` and ``convert_whisper_vq_tree`` do the same for the
+25 Hz tokenizer: the DiT and BigVGAN decoder, and the Whisper-VQ encoder.
+Their convs go from JAX's channels-last ``[K, C_in, C_out]`` to PyTorch's
+``[C_out, C_in, K]``, and BigVGAN's flipped-tap transposed convs back to
+``[C_in, C_out, K]``; the anti-aliasing ``_filters`` come along in float32.
+
 ``convert_encoder_tree`` carries the JAX speaker-encoder (ECAPA-TDNN) and
 Mimi-encoder trees across in float32. JAX stores their convs channels-last
 ``[K, C_in, C_out]``; the port runs them channels-first on ``[C_out, C_in,
@@ -97,3 +103,45 @@ def convert_encoder_tree(tree: Any, device: Device = None, key: Optional[str] = 
     if key in _ENCODER_CONVS and a.ndim == 3:
         a = a.transpose(2, 1, 0)
     return _tensor(a, device, torch.float32)
+
+
+# The 25 Hz trees' conv leaves by key: JAX [K, C_in, C_out] (a leading axis
+# for the AMP blocks' stacked pairs) → PyTorch [C_out, C_in, K].
+_V1_CONVS = ("pre_w", "post_w", "pre_conv_w", "conv1_w", "conv2_w", "ds_w")
+
+
+def _torch_layout(tree: Any, key: Optional[str] = None) -> Any:
+    """numpy leaves of a 25 Hz tree re-laid out for the port."""
+    if isinstance(tree, dict):
+        return {k: _torch_layout(v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_torch_layout(v, key) for v in tree)
+    a = np.asarray(tree)
+    if key == "ups_w":  # flipped taps [K, C_in, C_out] → [C_in, C_out, K]
+        return np.flip(a, axis=0).transpose(1, 2, 0)
+    if key in _V1_CONVS:
+        return np.swapaxes(a, -1, -3)
+    return a
+
+
+def convert_codec_v1_tree(tree: dict, dtype: torch.dtype = torch.float32,
+                          device: Device = None) -> dict:
+    """The JAX ``load_codec_v1`` tree (numpy leaves) → the port's, on
+    ``device`` (CUDA unless given): weights in ``dtype``, the DiT's ECAPA and
+    the anti-aliasing filters in float32."""
+    device = resolve_device(device)
+    dit = dict(tree["dit"])
+    spk = dit.pop("spk_encoder")
+    bigvgan = dict(tree["bigvgan"])
+    filters = bigvgan.pop("_filters")
+    out_dit = convert_tree(dit, device, dtype)
+    out_dit["spk_encoder"] = convert_encoder_tree(spk, device)
+    out_bigvgan = convert_tree(_torch_layout(bigvgan), device, dtype)
+    out_bigvgan["_filters"] = convert_tree(filters, device, torch.float32)
+    return {"dit": out_dit, "bigvgan": out_bigvgan}
+
+
+def convert_whisper_vq_tree(tree: dict, device: Device = None) -> dict:
+    """The JAX ``load_whisper_vq`` tree (numpy leaves) → the port's in
+    float32 on ``device`` (CUDA unless given)."""
+    return convert_tree(_torch_layout(tree), resolve_device(device), torch.float32)

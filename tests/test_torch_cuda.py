@@ -818,6 +818,27 @@ def test_clone_codes_on_the_card_equal_the_cpu_codes(device, tmp_path):
     assert [w.shape for w in wavs] == [(5 * up,)] * 2
 
 
+def test_25hz_tokenizer_on_the_card_matches_the_cpu(device, tmp_path):
+    """A tiny 25 Hz checkpoint (chip_smoke's writer), f32 on the card and on
+    the CPU through ``chip_smoke.check_v1_parity``: codec_v1 decode (the
+    DiT's mel, the waveform before the clamp) under one initial noise, and
+    encode (Whisper-VQ codes with near ties only, reference mels,
+    x-vectors), within phase 14's tolerances."""
+    from qwen_tts_tpu_torch.config import BigVGANConfig, CodecV1Config, DiTConfig
+    from qwen_tts_tpu_torch.models.whisper_vq import WhisperVQConfig
+
+    dit = DiTConfig(hidden_size=64, num_hidden_layers=3, num_attention_heads=4, head_dim=16,
+                    look_ahead_layers=(1,), look_backward_layers=(0, 2), num_embeds=512,
+                    enc_channels=(32, 32, 32, 32, 96), enc_attention_channels=16,
+                    enc_se_channels=16, enc_dim=32, emb_dim=32)
+    cfg = CodecV1Config(dit=dit, bigvgan=BigVGANConfig(upsample_initial_channel=128))
+    enc = WhisperVQConfig(n_state=64, n_head=4, n_layer=2, audio_vq_layers=2,
+                          audio_vq_codebook_size=256, audio_vq_codebook_dim=32)
+    chip_smoke.write_v1_checkpoint(str(tmp_path), cfg, enc, seed=3, device=device.type)
+    out = chip_smoke.check_v1_parity(str(tmp_path), "test")
+    assert out["card"].device.type == "cuda"
+
+
 # The serving engines on the card: per-row sampling inside a captured
 # program, slot insertion in place, the segment report, the device lock.
 

@@ -8,7 +8,6 @@ clips come from a numpy seed. Decoded waveforms of random codes must lie
 within 1e-5 of the JAX package's (those of encoded clips within the codec
 tests' 1e-4), and encoded codes must equal its codes."""
 
-import json
 import os
 import sys
 
@@ -63,13 +62,6 @@ def test_from_pretrained_runs_on_cuda_unless_told(tokenizers):
         pytest.skip("a card is present: the default device is taken")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TTokenizer.from_pretrained(tokenizers[0])
-
-
-def test_25hz_tokenizer_raises(tmp_path):
-    with open(tmp_path / "config.json", "w") as f:
-        json.dump({"model_type": "qwen3_tts_tokenizer_25hz"}, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TTokenizer.from_pretrained(str(tmp_path), device="cpu")
 
 
 def test_decode_matches_jax_in_every_payload_form(tokenizers):

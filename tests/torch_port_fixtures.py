@@ -37,6 +37,28 @@ def tame_codec(tree):
     return tree
 
 
+def make_tame_v1_checkpoint(model_dir: str, cfg, enc_cfg=None) -> None:
+    """``make_v1_checkpoint`` with BigVGAN's convs scaled by 1/sqrt(C_in)
+    and the output conv by a further 1/6. The fixture's random convs gain
+    ~sqrt(C_in) each, and the vocoder's output would sit on the [-1, 1]
+    clamp almost everywhere, which would make a waveform comparison vacuous;
+    scaled, the tiny configs' waveforms lie inside it."""
+    from safetensors.numpy import load_file, save_file
+
+    from ckpt_fixture_v1 import make_v1_checkpoint
+
+    make_v1_checkpoint(model_dir, cfg, enc_cfg)
+    path = os.path.join(model_dir, "model.safetensors")
+    tensors = load_file(path)
+    for name, a in tensors.items():
+        if not name.startswith("decoder.bigvgan.") or a.ndim != 3:
+            continue
+        c_in = a.shape[0] if ".ups." in name else a.shape[1]  # ConvTranspose1d: [in, out, k]
+        tensors[name] = (a / math.sqrt(c_in) / (6.0 if "conv_post" in name else 1.0)
+                         ).astype(np.float32)
+    save_file(tensors, path)
+
+
 def make_clone_checkpoint(model_dir: str) -> None:
     """``make_checkpoint(with_encoders=True)`` with random Mimi codebooks.
     The fixture's Mimi weights come from a fresh ``transformers.MimiModel``,
