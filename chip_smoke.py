@@ -44,10 +44,10 @@ Phases, each of which exits non-zero on failure:
    frame (a warm-up call at the same shapes captures it); the
    decode-attention launch count, captured launches x replays, must be
    exactly frames x (talker layers + groups x sub-talker layers); then the
-   decode loop and the whole call timed through the graphs and eagerly, three
+   decode loop and the whole call timed through the graphs and eagerly, two
    runs each in turns (ms/step, RTF, peak memory), and torch.profiler over a
-   16-frame decode segment each way (device idle share, host launch calls
-   per frame);
+   16-frame decode segment each way (device idle share against three
+   unprofiled runs, host launch calls per frame);
 5. parity: the same checkpoint in f32 on the card and on the CPU must give
    the same greedy codes (the card's recorded run eager, its replayed codes
    equal to them);
@@ -77,7 +77,7 @@ Phases, each of which exits non-zero on failure:
    must hold frames x 1920 samples, the kernels must launch exactly as the
    chunk schedule predicts (with the frames replayed past the last row's end
    before the next flag read), and the streamed codes must equal
-   ``generate_codes`` at the stream's prompt bucket (16); three streams each
+   ``generate_codes`` at the stream's prompt bucket (16); two streams each
    through the graphs and eagerly, in turns, and the eager first packet
    stage by stage (CUDA events);
 10. graphs: the replayed decode against the eager frame loop, each through
@@ -121,7 +121,7 @@ Phases, each of which exits non-zero on failure:
    continuous engine (8 slots, 25-frame segments, ceiling 96, prefill
    bucket 32) takes 16 requests (the texts in 4 voices, budgets 32 / 48 /
    64 / 96, four each) from 4 client threads at once: a first run (its
-   captures), then 3 runs each with double-buffered and synchronous
+   captures), then 2 runs each with double-buffered and synchronous
    dispatch in turns (wall, audio over wall, per-request latency, segments,
    stale skips, the engine's phase times, kernel launches); no capture
    after the first run, every run the first run's codes, no whole int8
@@ -155,7 +155,23 @@ Phases, each of which exits non-zero on failure:
    8 rows x 250 codes timed (DiT against BigVGAN by events, RTF, peak
    memory) beside its compute bounds, the encode of phase 11's clips timed,
    and one decode profiled (top ops, idle share). No kernel of the port's
-   is on this path.
+   is on this path;
+15. training (``phase_training``): the port's SFT entry
+   (``training/sft_12hz.py``'s ``train`` on its parsed flags) on phase 11's
+   Base checkpoint in f32, 8 rows of 40-150 frames at B=2, one epoch, remat
+   off (one step profiled) and on: losses finite and equal within
+   ``TRAIN_REMAT_LOSS_RTOL``, step ms, tokens/s, the peak memory lower with
+   remat, the export's and the snapshot's seconds; the snapshot restored at
+   full width and a step timed with and without deterministic algorithms
+   (the deterministic steps bit-identical); at the talker cut to 4 layers,
+   card against CPU (loss, terms, every gradient leaf, the params after 2
+   steps, each within a tolerance set before the first run) and resume (2
+   steps, snapshot, restore into fresh state, 2 steps == 4 straight steps
+   bit for bit); the export loaded by ``from_pretrained`` speaking 8 greedy
+   frames in the new voice (its speaker row the baked embedding); the EMA
+   VQ at the Whisper-VQ widths, 3 steps card against CPU (codes with near
+   ties only, untouched codes' buffers), then one k-means-initialised step
+   with dead-code expiry. No kernel of the port's is on the training path.
 
 Phase 7's ``QTTS_ST_KV8=1`` run also feeds the card's sub-talker int8 cache
 to the CPU (``hold_fed_subtalker_kv``) and holds the logits within
@@ -182,6 +198,10 @@ import sys
 import tempfile
 import threading
 import time
+
+# Deterministic cuBLAS, which the train step (phase 15) needs: read when the
+# process first uses cuBLAS. On Hopper it is also the default workspace.
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 # Main-path run: 4 texts, EOS banned (min_new_tokens > max_new_tokens), so
 # every row runs MAX_NEW frames and the budget trim keeps MAX_NEW - 1 = 64.
@@ -2247,7 +2267,7 @@ def _spread(values, fmt="{:.2f}") -> str:
             f"{fmt.format(max(values))})")
 
 
-def graph_vs_eager(fn, runs: int = 3):
+def graph_vs_eager(fn, runs: int = 2):
     """``fn`` timed ``runs`` times through the graphs and ``runs`` times
     eagerly, in turns (graph, eager, eager, graph, ...): per side the host
     wall seconds (each run ends in a synchronise), the peak device memory
@@ -2433,7 +2453,7 @@ def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) ->
     e, m, t, _ = batch_prompts(prompts)
     inputs = (e.to(dtype), m, t.to(dtype))
     walls = {"graph": [], "eager": []}
-    for i in range(10):  # unprofiled, in turns: graph, eager, eager, graph, ...
+    for i in range(6):  # unprofiled, in turns: graph, eager, eager, graph, ...
         side = "graph" if i % 4 in (0, 3) else "eager"
         walls[side].append(_segment(model, inputs, params, side == "eager", frames=frames)[2])
     for side in ("graph", "eager"):
@@ -4096,14 +4116,14 @@ def phase_serving(model_dir: str, base_dir: str, smi: str) -> dict:
     requests = serving_requests()
     audio_s = sum((b - 1) * up for *_, b in requests) / sr
 
-    # The continuous engine's load: a first run (its captures), then three
+    # The continuous engine's load: a first run (its captures), then two
     # runs each way, double-buffered and synchronous dispatch in turns.
     with counting_captures() as captures:
         first = run_continuous_load(model, requests, sync=False)
     first_captures = captures[0]
     runs = {False: [], True: []}
     with counting_captures() as captures:
-        for sync in (False, True, True, False, False, True):
+        for sync in (False, True, True, False):
             runs[sync].append(run_continuous_load(model, requests, sync))
     for i, w in enumerate(first["wavs"]):
         if w.shape != ((requests[i][3] - 1) * up,) or not np.isfinite(w).all():
@@ -4115,7 +4135,7 @@ def phase_serving(model_dir: str, base_dir: str, smi: str) -> dict:
             return statistics.median(r["stats"][key] for r in rs)
 
         log(f"serving continuous [{mode} dispatch] 16 requests, {SERVING_SLOTS} slots, "
-            f"{SERVING_SEGMENT}-frame segments, medians of 3: wall "
+            f"{SERVING_SEGMENT}-frame segments, medians of {len(rs)}: wall "
             f"{_spread([r['wall'] for r in rs], '{:.3f}')} s; audio/wall "
             f"{_spread([audio_s / r['wall'] for r in rs], '{:.3f}')}; latency median "
             f"{_spread([statistics.median(r['latency']) for r in rs], '{:.3f}')} s, max "
@@ -4124,8 +4144,8 @@ def phase_serving(model_dir: str, base_dir: str, smi: str) -> dict:
             f"{med('time_segment_s'):.3f} s, finish {med('time_finish_s'):.3f} s, emit "
             f"{med('time_emit_s'):.3f} s; launches {rs[0]['launches']} | {smi}")
     launches = first["launches"]
-    log(f"serving continuous: captures in the first run {first_captures}, in the 6 runs after "
-        f"it {captures[0]}; launches in the first run {launches}; audio {audio_s:.2f} s a run")
+    log(f"serving continuous: captures in the first run {first_captures}, in the "
+        f"{len(runs[False]) + len(runs[True])} runs after it {captures[0]}; launches in the first run {launches}; audio {audio_s:.2f} s a run")
     if captures[0]:
         fail("serving: a steady load captured a program anew")
     for name in ("decode_attention_int8", "subtalker_step", "int8_matmul"):
@@ -5146,6 +5166,10 @@ def phase_tokenizer_25hz(smi: str, cfg=None, enc=None) -> None:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
         peak = torch.cuda.max_memory_allocated() / 2**30
+        # Every row has V1_CODES codes, so decode's cut at V1_CODES x
+        # decode_upsample_rate (twice what a code makes at these widths) keeps
+        # the whole decode: the samples the codes make, which the audio
+        # seconds and the RTF count.
         samples = sum(w.shape[0] for w in wavs)
         want = V1_CODES * cfg.samples_per_code
         if any(w.shape != (want,) or not np.isfinite(w).all() for w in wavs):
@@ -5160,7 +5184,8 @@ def phase_tokenizer_25hz(smi: str, cfg=None, enc=None) -> None:
         log(f"25 Hz decode bf16, B={V1_BATCH} x {V1_CODES} codes (ref mel {V1_REF_FRAMES} "
             f"frames, 10 Euler steps, CFG): wall median {wall * 1e3:.1f} ms "
             f"({_spread([w * 1e3 for w in walls], '{:.1f}')}), {audio_s:.1f} s of audio "
-            f"({samples} samples), RTF {wall / audio_s:.5f}, peak memory {peak:.2f} GiB | {smi}")
+            f"({samples} samples, the {cfg.samples_per_code} a code makes), RTF "
+            f"{wall / audio_s:.5f}, peak memory {peak:.2f} GiB | {smi}")
         log(f"25 Hz decode bf16 stages (events, 3 runs): DiT {statistics.median(dit_ms):.1f} ms "
             f"({_spread(dit_ms, '{:.1f}')}), BigVGAN {statistics.median(big_ms):.1f} ms "
             f"({_spread(big_ms, '{:.1f}')}); bounds at the bf16 peak "
@@ -5207,6 +5232,590 @@ def phase_tokenizer_25hz(smi: str, cfg=None, enc=None) -> None:
                     f"{e.key[:90]}")
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
+# Phase 15: training
+# --------------------------------------------------------------------------
+
+# SFT at the flagship widths: TRAIN_ROWS pre-tokenized rows (<|im_start|>
+# and TRAIN_TEXT + 2 random text ids; TRAIN_FRAMES frames of every group's
+# codes, 16 under 2048 at these widths; a random speaker embedding), batch
+# TRAIN_BATCH, one epoch.
+TRAIN_ROWS = 8
+TRAIN_BATCH = 2
+TRAIN_TEXT = (8, 40)
+TRAIN_FRAMES = (40, 150)
+TRAIN_SPEAKER = "myvoice"
+# Tolerances, set before the first run:
+# remat recomputes the same ops, so the four steps' losses agree up to the
+# order of the gradients' sums (JAX measures ~5e-8 on the loss).
+TRAIN_REMAT_LOSS_RTOL = 1e-5
+# Card (f32, no TF32) against CPU at the cut depth: the loss and its terms
+# differ in summation order only; each gradient leaf through 4 + 5 layers of
+# backward; the params after 2 AdamW steps of lr 5e-5 from the same start,
+# where only elements whose gradient sits at the noise level can flip the
+# sign of their first update. The updates themselves (p2 - p0) are held
+# loosely, to catch a wrong rate or decay.
+TRAIN_CPU_LOSS_RTOL = 1e-5
+TRAIN_CPU_GRAD_REL_L2 = 1e-4
+TRAIN_CPU_PARAM_REL_L2 = 1e-4
+TRAIN_CPU_UPDATE_REL_L2 = 1e-2
+TRAIN_CUT_LAYERS = 4          # the talker's depth for card against CPU and resume
+TRAIN_CPU_FRAMES = (20, 28)   # shorter rows there, so that the CPU side stays short
+# EMA VQ at the Whisper-VQ widths (the 25 Hz tokenizer's encoder: 1280-wide
+# features, a 4096 x 512 codebook behind a projection, one quantizer).
+VQ_DIM, VQ_CODES, VQ_CODE_DIM, VQ_ROWS, VQ_STEPS = 1280, 4096, 512, 2000, 3
+# Card against CPU, each step from the same state: codes agree at least at
+# VQ_AGREEMENT, each disagreement a near tie (the CPU's distances to both
+# codes within VQ_NEAR_TIE_REL); the buffers of every code no disagreement
+# touched within VQ_BUFFER_REL of their largest value (sums in another order).
+VQ_AGREEMENT = 0.999
+VQ_NEAR_TIE_REL = 1e-5
+VQ_BUFFER_REL = 1e-5
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def training_rows(path: str, config: dict, frames, seed: int, n: int = TRAIN_ROWS) -> list:
+    """``n`` pre-tokenized JSONL rows for the SFT CLI, written to ``path``
+    and returned: ``<|im_start|>`` and TRAIN_TEXT + 2 text ids, TRAIN_FRAMES
+    frames of every code group, a speaker embedding, for the checkpoint's
+    ``config.json``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    talker_cfg = config["talker_config"]
+    groups = talker_cfg["num_code_groups"]
+    codes = talker_cfg["code_predictor_config"]["vocab_size"]
+    rows = []
+    for _ in range(n):
+        text = rng.integers(0, talker_cfg["text_vocab_size"], int(rng.integers(*TRAIN_TEXT)) + 2)
+        rows.append({
+            "text_ids": [config["im_start_token_id"]] + text.tolist(),
+            "audio_codes": rng.integers(
+                0, codes, (int(rng.integers(frames[0], frames[1] + 1)), groups)).tolist(),
+            "speaker_embedding": (0.03 * rng.standard_normal(talker_cfg["hidden_size"])).astype(
+                np.float32).tolist(),
+        })
+    with open(path, "w") as f:
+        for row in rows:
+            f.write(json.dumps(row) + "\n")
+    return rows
+
+
+@contextlib.contextmanager
+def seconds_of(calls: dict):
+    """Each ``(module, name)`` in ``calls`` timed while the block runs:
+    yields {label: [seconds of each call]}."""
+    import importlib
+
+    spent = {label: [] for label in calls}
+    saved = []
+    for label, (mod_name, name) in calls.items():
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, name)
+
+        def wrapper(*a, _fn=fn, _label=label, **kw):
+            t0 = time.perf_counter()
+            out = _fn(*a, **kw)
+            spent[_label].append(time.perf_counter() - t0)
+            return out
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, wrapper)
+    try:
+        yield spent
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def run_sft_cli(base_dir: str, data: str, out: str, remat: bool, device: str,
+                profile_step=None) -> dict:
+    """The port's SFT entry (``sft_12hz.train`` on the parsed flags), one
+    epoch at TRAIN_BATCH; each step's loss, terms, seconds (host clock from
+    the end of one step to the end of the next, after a synchronise: the
+    collate and the step) and real tokens; peak device memory; the export's
+    and the snapshot's seconds. ``profile_step`` profiles that step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from qwen_tts_tpu_torch.training import sft_12hz
+
+    args = sft_12hz.parse_args(
+        ["--model-path", base_dir, "--data", data, "--output-model-path", out,
+         "--speaker-name", TRAIN_SPEAKER, "--num-epochs", "1",
+         "--batch-size", str(TRAIN_BATCH)] + (["--remat"] if remat else [])
+        + (["--cpu"] if device == "cpu" else []))
+    steps, mark = [], [time.perf_counter()]
+    prof = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            if profile_step is not None else None)
+
+    def on_step(step, batch, loss, aux):
+        _sync(device)
+        now = time.perf_counter()
+        steps.append({"loss": float(loss), "talker_ce": float(aux["talker_ce"]),
+                      "subtalker_ce": float(aux["subtalker_ce"]), "s": now - mark[0],
+                      "tokens": int(batch.pad_mask.sum()), "shape": tuple(batch.pad_mask.shape),
+                      "profiled": step == profile_step})
+        if prof is not None and step == profile_step - 1:
+            prof.start()
+        if prof is not None and step == profile_step:
+            prof.stop()
+        mark[0] = time.perf_counter()
+
+    if device != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    calls = {"export": ("qwen_tts_tpu_torch.io.saver", "save_finetuned_checkpoint"),
+             "snapshot": ("qwen_tts_tpu_torch.training.checkpoint", "save_train_state")}
+    with seconds_of(calls) as spent:
+        rc = sft_12hz.train(args, on_step)
+    if rc != 0:
+        fail(f"training: the SFT entry returned {rc}")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if device != "cpu" else 0.0
+    return {"steps": steps, "peak_gib": peak, "export_s": spent["export"][0],
+            "snapshot_s": spent["snapshot"][0], "prof": prof}
+
+
+def log_sft_run(name: str, run: dict, smi: str) -> float:
+    """Logs a run's steps; returns the median step seconds of the unprofiled
+    steps after the first (the first also loads the checkpoint)."""
+    for i, s in enumerate(run["steps"]):
+        if not all(math.isfinite(s[k]) for k in ("loss", "talker_ce", "subtalker_ce")):
+            fail(f"training: {name} step {i} loss is not finite: {s}")
+    timed_steps = [s for s in run["steps"][1:] if not s["profiled"]]
+    step_s = statistics.median(s["s"] for s in timed_steps)
+    tokens = statistics.median(s["tokens"] for s in timed_steps)
+    log(f"training SFT {name}: losses {[round(s['loss'], 5) for s in run['steps']]} (talker "
+        f"{[round(s['talker_ce'], 4) for s in run['steps']]}, sub-talker "
+        f"{[round(s['subtalker_ce'], 4) for s in run['steps']]}); batch shapes "
+        f"{[s['shape'] for s in run['steps']]}; step {step_s * 1e3:.1f} ms median over "
+        f"{len(timed_steps)} ({_spread([s['s'] * 1e3 for s in timed_steps], '{:.1f}')}; "
+        f"collate + step, host clock after a synchronise), {tokens / step_s:.0f} tokens/s "
+        f"({tokens:.0f} real positions a step), peak memory {run['peak_gib']:.2f} GiB; "
+        f"export {run['export_s']:.1f} s, train-state snapshot {run['snapshot_s']:.1f} s | {smi}")
+    return step_s
+
+
+def log_profile(prof, what: str, wall_ms: float, unprofiled_ms: float, smi: str) -> None:
+    """The profiled step's device busy time, idle share (against its own
+    wall and the unprofiled steps' median) and top ten device ops."""
+    from torch.autograd import DeviceType
+
+    device = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.self_device_time_total, reverse=True)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    if busy_ms == 0:
+        log("training profile: the profiler saw no device time (not measured)")
+        return
+    log(f"training profile, {what}: wall {wall_ms:.1f} ms (profiler on), device busy "
+        f"{busy_ms:.1f} ms in {sum(e.count for e in device)} kernels, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; against the unprofiled median "
+        f"{1 - busy_ms / unprofiled_ms:.3f} | {smi}")
+    for e in device[:10]:
+        log(f"  training profile op: {e.self_device_time_total / 1e3:8.2f} ms "
+            f"({e.self_device_time_total / 1e3 / busy_ms:.3f}) {e.count:6d}x  {e.key[:90]}")
+
+
+def _leaves(tree) -> dict:
+    from qwen_tts_tpu_torch.training.checkpoint import flatten
+
+    return flatten(tree)
+
+
+def _tree_to(tree, device):
+    from qwen_tts_tpu_torch.training.sft import tree_map
+
+    return tree_map(lambda t: t.to(device), tree)
+
+
+def step_without_determinism(cfg, optimizer, params, opt_state, batch):
+    """``make_train_step``'s step with f32 but without deterministic
+    algorithms: what determinism costs."""
+    from qwen_tts_tpu_torch.training.sft import loss_and_grads
+    from qwen_tts_tpu_torch.utils import full_f32
+
+    with full_f32():
+        loss, aux, grads = loss_and_grads(params, cfg, batch)
+        optimizer.step(grads, opt_state, params)
+        return params, opt_state, loss, aux
+
+
+def time_determinism(cfg, params, opt_state, batch, smi: str, runs: int = 3) -> None:
+    """The full-width step with and without deterministic algorithms, in
+    turns, each from a copy of the same state; every deterministic step's
+    params and state the bits of the first."""
+    import torch
+
+    from qwen_tts_tpu_torch.training.sft import make_optimizer, make_train_step, tree_map
+
+    optimizer = make_optimizer(5e-5, weight_decay=0.01)
+    step = make_train_step(cfg, optimizer)
+    times = {"deterministic": [], "not deterministic": []}
+    first, same = None, True
+    for _ in range(runs):
+        for name, fn in (("deterministic", step),
+                         ("not deterministic",
+                          lambda p, o, b: step_without_determinism(cfg, optimizer, p, o, b))):
+            p, o = tree_map(torch.clone, params), tree_map(torch.clone, opt_state)
+            _sync("cuda")
+            t0 = time.perf_counter()
+            out = _leaves(fn(p, o, batch)[:2])
+            _sync("cuda")
+            times[name].append(time.perf_counter() - t0)
+            if name == "deterministic":
+                if first is None:
+                    first = out
+                else:
+                    same = same and all(_equal_bits(first[k], out[k]) for k in first)
+            del out, p, o
+    del first
+    det, free = (statistics.median(times[k]) for k in ("deterministic", "not deterministic"))
+    log(f"training: full-width step with deterministic algorithms "
+        f"{_spread([t * 1e3 for t in times['deterministic']], '{:.1f}')} ms, without "
+        f"{_spread([t * 1e3 for t in times['not deterministic']], '{:.1f}')} ms (median "
+        f"{runs} each, in turns, batch {tuple(batch.pad_mask.shape)}): determinism costs "
+        f"{(det - free) * 1e3:.1f} ms a step ({det / free - 1:+.3f}); the {runs} "
+        f"deterministic steps' params and state bit-identical: {same} | {smi}")
+    if not same:
+        fail("training: two deterministic steps from one state differ")
+
+
+def _equal_bits(a, b) -> bool:
+    import torch
+
+    return a.dtype == b.dtype and a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def _rel(a, b) -> float:
+    """Relative L2 of ``a`` from ``b`` in f64, on ``a``'s device."""
+    import torch
+
+    a, b = a.detach().double(), b.detach().to(a.device).double()
+    den = torch.linalg.norm(b)
+    return float(torch.linalg.norm(a - b) / den) if den > 0 else float(torch.linalg.norm(a))
+
+
+def cut_training_params(base_dir: str, device: str):
+    """(cfg cut to TRAIN_CUT_LAYERS talker layers, its params in f32 on
+    ``device``): widths full."""
+    import torch
+
+    from qwen_tts_tpu_torch.io.loader import load_checkpoint
+
+    cfg, talker, sub, _, _ = load_checkpoint(base_dir, talker_dtype=torch.float32, device=device)
+    cfg = dataclasses.replace(cfg, talker=dataclasses.replace(
+        cfg.talker, num_hidden_layers=TRAIN_CUT_LAYERS))
+    talker = dict(talker, trunk={k: v[:TRAIN_CUT_LAYERS].clone()
+                                 for k, v in talker["trunk"].items()})
+    return cfg, {"talker": talker, "subtalker": sub}
+
+
+def check_training_card_vs_cpu(cfg, params, batches, smi: str) -> None:
+    """One batch's loss, terms and every gradient leaf, then the params
+    after 2 optimizer steps, card against CPU from the same params and the
+    same batch tensors."""
+    import torch
+
+    from qwen_tts_tpu_torch.training.sft import (
+        SFTBatch, loss_and_grads, make_optimizer, make_train_step, step_mode, tree_map)
+
+    optimizer = make_optimizer(5e-5, weight_decay=0.01)
+    sides = {}
+    for side, device in (("card", params["talker"]["norm"].device), ("cpu", "cpu")):
+        p0 = params if side == "card" else _tree_to(params, "cpu")
+        bs = [SFTBatch(*(t.to(device) for t in b)) for b in batches[:2]]
+        t0 = time.perf_counter()
+        p, state = tree_map(torch.clone, p0), optimizer.init(p0)
+        with step_mode(torch.device(device)):
+            loss, aux, grads = loss_and_grads(p, cfg.talker, bs[0])
+            optimizer.step(grads, state, p)
+        make_train_step(cfg.talker, optimizer)(p, state, bs[1])
+        _sync(device)
+        sides[side] = {"loss": loss, "aux": aux, "grads": _leaves(grads), "p2": _leaves(p),
+                       "p0": _leaves(p0), "s": time.perf_counter() - t0}
+        del grads, p, state
+    card, cpu = sides["card"], sides["cpu"]
+    terms = {"loss": (card["loss"], cpu["loss"])}
+    terms.update({k: (card["aux"][k], cpu["aux"][k]) for k in card["aux"]})
+    term_err = {k: abs(float(a) - float(b)) / abs(float(b)) for k, (a, b) in terms.items()}
+    grad_err = {k: _rel(card["grads"][k], cpu["grads"][k]) for k in card["grads"]}
+    param_err = {k: _rel(card["p2"][k], cpu["p2"][k]) for k in card["p2"]}
+    update_err = {k: _rel(card["p2"][k] - card["p0"][k], cpu["p2"][k] - cpu["p0"][k])
+                  for k in card["p2"]}
+    worst = lambda d: max(d.items(), key=lambda kv: kv[1])  # noqa: E731
+    log(f"training card vs CPU (f32, talker cut to {TRAIN_CUT_LAYERS} layers, widths full, "
+        f"batch {tuple(batches[0].pad_mask.shape)}): relative loss / term errors "
+        f"{ {k: f'{v:.2e}' for k, v in term_err.items()} } (tol {TRAIN_CPU_LOSS_RTOL}); "
+        f"gradient leaves' relative L2 worst {worst(grad_err)[1]:.2e} at {worst(grad_err)[0]} "
+        f"(tol {TRAIN_CPU_GRAD_REL_L2}); params after 2 steps worst {worst(param_err)[1]:.2e} "
+        f"at {worst(param_err)[0]} (tol {TRAIN_CPU_PARAM_REL_L2}); updates p2 - p0 worst "
+        f"{worst(update_err)[1]:.2e} at {worst(update_err)[0]} (tol {TRAIN_CPU_UPDATE_REL_L2}); "
+        f"CPU side {cpu['s']:.1f} s, card {card['s']:.2f} s | {smi}")
+    if max(term_err.values()) > TRAIN_CPU_LOSS_RTOL:
+        fail("training: card and CPU losses disagree")
+    if worst(grad_err)[1] > TRAIN_CPU_GRAD_REL_L2:
+        fail("training: card and CPU gradients disagree")
+    if worst(param_err)[1] > TRAIN_CPU_PARAM_REL_L2 or worst(update_err)[1] > TRAIN_CPU_UPDATE_REL_L2:
+        fail("training: card and CPU params after 2 steps disagree")
+
+
+def check_resume(cfg, params, batches, work: str, smi: str) -> None:
+    """4 straight steps against 2 + save + restore into fresh state + 2, on
+    the params' device (the card): params and optimizer state bit for bit."""
+    import torch
+
+    from qwen_tts_tpu_torch.training.checkpoint import load_train_state, save_train_state
+    from qwen_tts_tpu_torch.training.sft import make_optimizer, make_train_step, tree_map
+
+    optimizer = make_optimizer(5e-5, weight_decay=0.01)
+    step = make_train_step(cfg.talker, optimizer)
+    p, o = tree_map(torch.clone, params), optimizer.init(params)
+    for b in batches:
+        p, o, loss_a, _ = step(p, o, b)
+    p2, o2 = tree_map(torch.clone, params), optimizer.init(params)
+    for b in batches[:2]:
+        p2, o2, _, _ = step(p2, o2, b)
+    device = params["talker"]["norm"].device
+    _sync(device)
+    t0 = time.perf_counter()
+    save_train_state(work, p2, o2, step=2, epoch=0)
+    save_s = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(work) for f in fs)
+    del p2, o2
+    fresh = tree_map(torch.empty_like, params)  # a fresh tree of the same shapes
+    t0 = time.perf_counter()
+    rp, ro, meta = load_train_state(work, fresh, optimizer)
+    _sync(device)
+    load_s = time.perf_counter() - t0
+    del fresh
+    for b in batches[2:]:
+        rp, ro, loss_b, _ = step(rp, ro, b)
+    a, b = _leaves({"p": p, "o": o}), _leaves({"p": rp, "o": ro})
+    same = set(a) == set(b) and all(_equal_bits(a[k], b[k]) for k in a)
+    log(f"training resume on {device.type} (talker cut to {TRAIN_CUT_LAYERS} layers): 2 steps, "
+        f"snapshot {size / 2**30:.2f} GiB saved in {save_s:.2f} s and restored in {load_s:.2f} "
+        f"s, 2 steps: params and optimizer state ({len(a)} leaves) bit for bit those of 4 "
+        f"straight steps: {same}; loss {float(loss_b):.6f} == {float(loss_a):.6f} | {smi}")
+    if not same or meta["step"] != 2:
+        fail("training: the resumed run differs from the uninterrupted one")
+
+
+def export_speaks(export_dir: str, speaker_embedding, smi: str) -> None:
+    """The CLI's export loaded by ``from_pretrained`` (f32) on the card:
+    the baked speaker row, then ``generate_custom_voice`` in the new voice,
+    greedy, 8 frames, EOS banned."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    t0 = time.perf_counter()
+    model = Qwen3TTSModel.from_pretrained(export_dir, talker_dtype=torch.float32)
+    load_s = time.perf_counter() - t0
+    model.tokenizer = ChatTemplateTokenizer()
+    slot = model.cfg.talker.spk_id[0][1]
+    row = model.talker_params["codec_embedding"][slot].cpu().numpy()
+    if model.get_supported_speakers() != [TRAIN_SPEAKER] or not np.array_equal(
+            row, np.asarray(speaker_embedding, np.float32)):
+        fail(f"training: the export's speakers {model.get_supported_speakers()} or its "
+             f"speaker row {slot} differ from what was baked in")
+    frames = 8
+    wavs, sr = model.generate_custom_voice(TEXTS[0], TRAIN_SPEAKER, "english",
+                                           max_new_tokens=frames + 1, min_new_tokens=frames + 2,
+                                           do_sample=False, subtalker_dosample=False)
+    want = frames * model.cfg.codec.decode_upsample_rate
+    wav = wavs[0]
+    log(f"training export: loaded in {load_s:.1f} s, speakers {model.get_supported_speakers()} "
+        f"(slot {slot} = the baked embedding), {frames} greedy frames -> {wav.shape[0]} samples "
+        f"at {sr} Hz, max |wav| {np.abs(wav).max():.3f} | {smi}")
+    if wav.shape != (want,) or not np.isfinite(wav).all() or np.abs(wav).max() > 1.0:
+        fail(f"training: the export spoke {wav.shape} samples (want {want}), finite and in "
+             f"[-1, 1]")
+
+
+def vq_card_vs_cpu(smi: str, device: str = "cuda") -> None:
+    """EMA VQ at the Whisper-VQ widths: VQ_STEPS steps (k-means init and
+    expiry off) on the card, each held against the CPU's step from the
+    card's state of the step before; then one step with k-means init and
+    dead-code expiry on, on the card."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.training import vq
+    from qwen_tts_tpu_torch.training.sft import step_mode
+
+    cfg = vq.VQTrainConfig(dim=VQ_DIM, codebook_size=VQ_CODES, codebook_dim=VQ_CODE_DIM,
+                           num_quantizers=1, kmeans_init=False, threshold_ema_dead_code=0.0)
+    gen = torch.Generator().manual_seed(77)
+    state_cpu = vq.init_vq_state(cfg, gen)
+    params_cpu = vq.init_vq_params(cfg, gen)
+    state = vq.VQState(*(t.to(device) for t in state_cpu))
+    params = {k: v.to(device) for k, v in params_cpu.items()}
+    card_gen = torch.Generator(device=device).manual_seed(0)
+    equal = total = touched = 0
+    gaps, buffer_err, walls = [], 0.0, []
+    for i in range(VQ_STEPS):
+        x_cpu = torch.from_numpy(np.random.default_rng(100 + i).standard_normal(
+            (4, VQ_ROWS // 4, VQ_DIM)).astype(np.float32))
+        before = vq.VQState(*(t.cpu() for t in state))
+        x = x_cpu.to(device)
+        _sync(device)
+        t0 = time.perf_counter()
+        with step_mode(torch.device(device)):
+            state, out = vq.vq_train_step(state, params, x, card_gen, cfg=cfg)
+        _sync(device)
+        walls.append(time.perf_counter() - t0)
+        want_state, want = vq.vq_train_step(before, params_cpu, x_cpu, torch.Generator(),
+                                            cfg=cfg)
+        got_idx, want_idx = out.indices.cpu().reshape(-1), want.indices.reshape(-1)
+        diff = torch.nonzero(got_idx != want_idx).reshape(-1)
+        equal += int((got_idx == want_idx).sum())
+        total += got_idx.numel()
+        xp = x_cpu.reshape(-1, VQ_DIM) @ params_cpu["in_w"][0, 0] + params_cpu["in_b"][0, 0]
+        emb = before.embed[0, 0]
+        hit = torch.zeros(VQ_CODES, dtype=torch.bool)
+        for r in diff.tolist():
+            a, b = int(got_idx[r]), int(want_idx[r])
+            da, db = ((xp[r] - emb[a]) ** 2).sum(), ((xp[r] - emb[b]) ** 2).sum()
+            gaps.append(float((da - db).abs() / db))
+            hit[a] = hit[b] = True
+        touched += int(hit.sum())
+        for name in ("cluster_size", "embed", "embed_avg"):
+            g, w = getattr(state, name).cpu()[0, 0], getattr(want_state, name)[0, 0]
+            keep = ~hit
+            err = float((g[keep] - w[keep]).abs().max() / w[keep].abs().max())
+            buffer_err = max(buffer_err, err)
+    agreement = equal / total
+    log(f"training VQ card vs CPU ({VQ_STEPS} steps, dim {VQ_DIM}, codebook {VQ_CODES} x "
+        f"{VQ_CODE_DIM} behind a projection, {VQ_ROWS} rows a step, each step from the "
+        f"card's state): codes agree {agreement:.5f} (min {VQ_AGREEMENT}), {len(gaps)} "
+        f"disagreements with relative distance gaps {['%.2e' % g for g in gaps[:5]]} (near "
+        f"tie {VQ_NEAR_TIE_REL}), buffers of the {VQ_CODES * VQ_STEPS - touched} untouched "
+        f"code-steps within {buffer_err:.2e} of their largest value (tol {VQ_BUFFER_REL}); "
+        f"card {_spread([w * 1e3 for w in walls], '{:.2f}')} ms a step | {smi}")
+    if agreement < VQ_AGREEMENT or any(g > VQ_NEAR_TIE_REL for g in gaps) \
+            or buffer_err > VQ_BUFFER_REL:
+        fail("training: the VQ step on the card disagrees with the CPU's")
+
+    cfg_init = dataclasses.replace(cfg, kmeans_init=True, threshold_ema_dead_code=2.0)
+    fresh = vq.init_vq_state(cfg_init, device=device)
+    x = torch.from_numpy(np.random.default_rng(200).standard_normal(
+        (4, VQ_ROWS // 4, VQ_DIM)).astype(np.float32)).to(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    with step_mode(torch.device(device)):
+        fresh, out = vq.vq_train_step(fresh, params, x, card_gen, cfg=cfg_init)
+    _sync(device)
+    init_s = time.perf_counter() - t0
+    finite = all(bool(torch.isfinite(t).all()) for t in fresh[1:]) and bool(fresh.inited.all())
+    log(f"training VQ k-means init ({cfg_init.kmeans_iters} iterations over {VQ_ROWS} rows) "
+        f"and dead-code expiry on the card: one step {init_s * 1e3:.1f} ms, buffers finite "
+        f"and initialised: {finite}, {len(torch.unique(out.indices))} distinct codes | {smi}")
+    if not finite:
+        fail("training: the k-means-initialised VQ step left non-finite buffers")
+
+
+def phase_training(base_dir: str, smi: str, device: str = "cuda") -> None:
+    """Phase 15: training. The port's SFT entry at the flagship widths on
+    the Base checkpoint (f32 master weights): one epoch of TRAIN_ROWS rows
+    at batch TRAIN_BATCH, remat off (one step profiled) and on (losses
+    agree, peak memory lower); the first run's train state restored at full
+    width, and a full-width step timed with and without deterministic
+    algorithms; at the talker cut to TRAIN_CUT_LAYERS layers, card against
+    CPU (loss, terms, every gradient leaf, params after 2 steps) and resume
+    bit for bit; the export loaded and speaking; the EMA VQ at the
+    Whisper-VQ widths. No kernel of the port's is on the training path.
+    ``device`` "cpu" rehearses the phase on the CPU (at widths the caller
+    patches in)."""
+    import torch
+
+    from qwen_tts_tpu_torch.io.loader import load_checkpoint
+    from qwen_tts_tpu_torch.training.checkpoint import load_train_state
+    from qwen_tts_tpu_torch.training.data import collate, examples_from_jsonl
+    from qwen_tts_tpu_torch.training.sft import make_optimizer
+
+    work = tempfile.mkdtemp(prefix="qtts_train_", dir=os.path.dirname(os.path.abspath(base_dir)))
+    counters = _counters()
+    for c in counters.values():
+        c.launches = 0
+    try:
+        with open(os.path.join(base_dir, "config.json")) as f:
+            config = json.load(f)
+        data = os.path.join(work, "train.jsonl")
+        rows = training_rows(data, config, TRAIN_FRAMES, seed=15)
+        out_plain, out_remat = os.path.join(work, "plain"), os.path.join(work, "remat")
+        plain = run_sft_cli(base_dir, data, out_plain, False, device,
+                            profile_step=TRAIN_ROWS // TRAIN_BATCH - 1)
+        plain_s = log_sft_run("remat off", plain, smi)
+        if plain["prof"] is not None and device != "cpu":
+            prof_step = plain["steps"][-1]
+            log_profile(plain["prof"], f"one full-width SFT step (batch {prof_step['shape']}, "
+                        f"collate + step)", prof_step["s"] * 1e3, plain_s * 1e3, smi)
+
+        # The snapshot restored at full width; a step timed with and
+        # without determinism from it.
+        cfg, talker, sub, _, _ = load_checkpoint(base_dir, talker_dtype=torch.float32,
+                                                 device=device)
+        optimizer = make_optimizer(5e-5, weight_decay=0.01)
+        t0 = time.perf_counter()
+        params, opt_state, meta = load_train_state(os.path.join(out_plain, "train_state"),
+                                                   {"talker": talker, "subtalker": sub},
+                                                   optimizer)
+        _sync(device)
+        load_s = time.perf_counter() - t0
+        del talker, sub
+        state_dir = os.path.join(out_plain, "train_state", meta["state_dir"])
+        size = sum(os.path.getsize(os.path.join(state_dir, f)) for f in os.listdir(state_dir))
+        n_params = sum(t.numel() for t in _leaves(params).values())
+        log(f"training: train state at full width ({n_params / 1e9:.3f} B parameters, "
+            f"{size / 2**30:.2f} GiB with the optimizer's moments) saved in "
+            f"{plain['snapshot_s']:.1f} s, restored in {load_s:.1f} s (warm page cache) | {smi}")
+        shutil.rmtree(os.path.join(out_plain, "train_state"))
+        if device != "cpu":
+            examples = examples_from_jsonl(data, None, None)
+            batch = collate(examples[:TRAIN_BATCH], cfg, params["talker"], params["subtalker"])
+            time_determinism(cfg.talker, params, opt_state, batch, smi)
+        del params, opt_state
+
+        remat = run_sft_cli(base_dir, data, out_remat, True, device)
+        remat_s = log_sft_run("remat on", remat, smi)
+        shutil.rmtree(out_remat)
+        loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                       for a, b in zip(remat["steps"], plain["steps"]))
+        log(f"training SFT remat on against off: losses' largest relative difference "
+            f"{loss_err:.2e} (tol {TRAIN_REMAT_LOSS_RTOL}); peak memory {remat['peak_gib']:.2f} "
+            f"against {plain['peak_gib']:.2f} GiB; step {remat_s * 1e3:.1f} against "
+            f"{plain_s * 1e3:.1f} ms | {smi}")
+        if loss_err > TRAIN_REMAT_LOSS_RTOL:
+            fail("training: remat changed the losses")
+        if device != "cpu" and not remat["peak_gib"] < plain["peak_gib"]:
+            fail("training: remat did not lower the peak memory")
+
+        cut_cfg, cut = cut_training_params(base_dir, device)
+        training_rows(os.path.join(work, "short.jsonl"), config, TRAIN_CPU_FRAMES, seed=16,
+                      n=4 * TRAIN_BATCH)
+        examples = examples_from_jsonl(os.path.join(work, "short.jsonl"), None, None)
+        batches = [collate(examples[i : i + TRAIN_BATCH], cut_cfg, cut["talker"],
+                           cut["subtalker"]) for i in range(0, len(examples), TRAIN_BATCH)]
+        check_training_card_vs_cpu(cut_cfg, cut, batches, smi)
+        check_resume(cut_cfg, cut, batches, os.path.join(work, "resume"), smi)
+        del cut, batches
+
+        export_speaks(os.path.join(out_plain, "checkpoint-epoch-0"),
+                      rows[0]["speaker_embedding"], smi)
+        vq_card_vs_cpu(smi, device)
+        launches = {k: c.launches for k, c in counters.items()}
+        log(f"training: launches of the port's kernels over the phase {launches} (the "
+            f"export's speech only: no kernel of the port's is on the training path)")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def timed(name: str, fn, *args, **kwargs):
@@ -5263,6 +5872,9 @@ def main() -> int:
         serving_engines = timed("serving engines", phase_serving, model_dir, base_dir, smi)
         timed("fast modes", phase_fast_modes, model_dir, smi)
         timed("25 Hz tokenizer", phase_tokenizer_25hz, smi)
+        graphs.clear()
+        torch.cuda.empty_cache()
+        timed("training", phase_training, base_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.

@@ -19,6 +19,10 @@ K]``, the checkpoint's own layout, so those leaves are transposed. The Mimi
 tree's ``dilation`` and ``stride`` leaves are dropped: the port reads them
 from the config.
 
+``convert_vq_tree`` carries the EMA VQ trainer's trees across: a JAX
+``VQState`` (its four buffers, ``inited`` staying bool) and the projection
+params (or None), as the port's ``training.vq.VQState`` and dict.
+
 Only floating weights take the requested dtype. Integer leaves (int8 weights
 and tables of a quantized tree) keep their own dtype, and so do scales: the
 ``*_s`` weight scales, stored bf16 by ``quantize_trunk_int8`` whatever the
@@ -32,6 +36,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from qwen_tts_tpu_torch.training.vq import VQState
 from qwen_tts_tpu_torch.utils import Device, resolve_device
 
 
@@ -145,3 +150,13 @@ def convert_whisper_vq_tree(tree: dict, device: Device = None) -> dict:
     """The JAX ``load_whisper_vq`` tree (numpy leaves) → the port's in
     float32 on ``device`` (CUDA unless given)."""
     return convert_tree(_torch_layout(tree), resolve_device(device), torch.float32)
+
+
+def convert_vq_tree(state, params: Optional[dict] = None, device: Device = None
+                    ) -> Tuple[VQState, Optional[dict]]:
+    """A JAX ``VQState`` (any object with its four fields; numpy leaves)
+    and its projection params → the port's, in float32 on ``device`` (CUDA
+    unless given); ``inited`` stays bool."""
+    device = resolve_device(device)
+    fields = (convert_tree(getattr(state, k), device, torch.float32) for k in VQState._fields)
+    return VQState(*fields), convert_tree(params, device, torch.float32) if params else None

@@ -124,13 +124,11 @@ class MultiSafeTensors:
 
 def save_file(tensors: Mapping[str, torch.Tensor], path: str) -> None:
     """Write ``tensors`` as one .safetensors file (header, then the raw
-    little-endian bytes of each tensor in order)."""
+    little-endian bytes of each tensor in order). Tensors on another device
+    come to the host one at a time, so the host holds one copy at most."""
     header: Dict[str, dict] = {}
     offset = 0
-    contiguous = {}
     for name, t in tensors.items():
-        t = t.detach().to("cpu").contiguous()
-        contiguous[name] = t
         n = t.numel() * t.element_size()
         header[name] = {"dtype": _NAMES[t.dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + n]}
@@ -140,5 +138,6 @@ def save_file(tensors: Mapping[str, torch.Tensor], path: str) -> None:
     with open(path, "wb") as f:
         f.write(struct.pack("<Q", len(blob)))
         f.write(blob)
-        for t in contiguous.values():
+        for t in tensors.values():
+            t = t.detach().to("cpu").contiguous()
             f.write(t.reshape(-1).view(torch.uint8).numpy())

@@ -25,13 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.config import CodecDecoderConfig
-from qwen_tts_tpu_torch.models.trunk import TrunkDims, trunk_prefill
+from qwen_tts_tpu_torch.models.trunk import TrunkDims, init_trunk_params, trunk_prefill
 from qwen_tts_tpu_torch.ops.convs import causal_conv1d, causal_conv_transpose1d
 from qwen_tts_tpu_torch.ops.cuda.vocoder_block import (
     MAX_C_IN, vocoder_block, vocoder_block_plain)
 from qwen_tts_tpu_torch.ops.norms import layer_norm, rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 from qwen_tts_tpu_torch.ops.snake import snake_beta
+from qwen_tts_tpu_torch.utils import normal_init
 
 
 def codec_transformer_dims(cfg: CodecDecoderConfig) -> TrunkDims:
@@ -45,6 +46,77 @@ def codec_transformer_dims(cfg: CodecDecoderConfig) -> TrunkDims:
         eps=cfg.rms_norm_eps,
         qk_norm=False,
     )
+
+
+def init_codec_params(generator: torch.Generator, cfg: CodecDecoderConfig,
+                      dtype=torch.float32, device=None) -> dict:
+    """Random codec weights (tests without a checkpoint) in the loader's
+    layout: folded codebooks, convs ``[K, C_in, C_out]``, flipped-tap
+    transposed convs, matrices N(0, 1/fan_in), SnakeBeta's pre-exponentiated
+    alpha and beta ones, biases zeros, LayerScale at its initial scale; the
+    JAX package's keys, shapes and dtypes."""
+    device = device if device is not None else generator.device
+    lat, dec = cfg.latent_dim, cfg.decoder_dim
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=dtype, device=device)
+
+    def resunit(dim):
+        return {"alpha1": full((dim,), 1.0), "beta1": full((dim,), 1.0),
+                "conv1_w": w((7, dim, dim), 7 * dim), "conv1_b": full((dim,), 0.0),
+                "alpha2": full((dim,), 1.0), "beta2": full((dim,), 1.0),
+                "conv2_w": w((1, dim, dim), dim), "conv2_b": full((dim,), 0.0)}
+
+    trunk = init_trunk_params(generator, codec_transformer_dims(cfg), dtype, device)
+    for key in ("attn_scale", "mlp_scale"):
+        trunk[key] = full((cfg.num_hidden_layers, cfg.hidden_size),
+                          cfg.layer_scale_initial_scale)
+    upsample = [{
+        "tconv_w": w((factor, lat, lat), lat * factor),
+        "tconv_b": full((lat,), 0.0),
+        "convnext": {
+            "dw_w": w((7, 1, lat), 7), "dw_b": full((lat,), 0.0),
+            "ln_w": full((lat,), 1.0), "ln_b": full((lat,), 0.0),
+            "pw1_w": w((lat, 4 * lat), lat), "pw1_b": full((4 * lat,), 0.0),
+            "pw2_w": w((4 * lat, lat), 4 * lat), "pw2_b": full((lat,), 0.0),
+            "gamma": full((lat,), 1e-6),
+        },
+    } for factor in cfg.upsampling_ratios]
+    blocks = []
+    for i, rate in enumerate(cfg.upsample_rates):
+        c_in, c_out = dec // 2 ** i, dec // 2 ** (i + 1)
+        blocks.append({
+            "alpha": full((c_in,), 1.0), "beta": full((c_in,), 1.0),
+            "tconv_w": w((2 * rate, c_in, c_out), c_in * rate),
+            "tconv_b": full((c_out,), 0.0),
+            "resunits": [resunit(c_out) for _ in range(3)],
+        })
+    out_dim = dec // 2 ** len(cfg.upsample_rates)
+    cbd = cfg.codebook_dim
+    return {
+        "codebooks": w((cfg.num_quantizers, cfg.codebook_size, cbd), cbd),
+        "pre_conv_w": w((3, cbd, lat), 3 * cbd),
+        "pre_conv_b": full((lat,), 0.0),
+        "transformer": {
+            "input_proj_w": w((lat, cfg.hidden_size), lat),
+            "input_proj_b": full((cfg.hidden_size,), 0.0),
+            "trunk": trunk,
+            "norm": full((cfg.hidden_size,), 1.0),
+            "output_proj_w": w((cfg.hidden_size, lat), cfg.hidden_size),
+            "output_proj_b": full((lat,), 0.0),
+        },
+        "upsample": upsample,
+        "vocoder_pre_w": w((7, lat, dec), 7 * lat),
+        "vocoder_pre_b": full((dec,), 0.0),
+        "blocks": blocks,
+        "final_alpha": full((out_dim,), 1.0),
+        "final_beta": full((out_dim,), 1.0),
+        "final_conv_w": w((7, out_dim, 1), 7 * out_dim),
+        "final_conv_b": full((1,), 0.0),
+    }
 
 
 def rvq_dequantize(params: dict, codes: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.config import SpeakerEncoderConfig
 from qwen_tts_tpu_torch.io.safetensors import MultiSafeTensors
+from qwen_tts_tpu_torch.utils import normal_init
 
 # --------------------------------------------------------------------------
 # Reflect padding of any length
@@ -181,8 +182,49 @@ def speaker_encoder_forward(params: dict, cfg: SpeakerEncoderConfig,
 
 
 # --------------------------------------------------------------------------
-# Loading
+# Init / loading
 # --------------------------------------------------------------------------
+
+def init_speaker_params(generator: torch.Generator, cfg: SpeakerEncoderConfig,
+                        dtype=torch.float32, device=None) -> dict:
+    """Random ECAPA-TDNN weights (tests without a checkpoint) in the
+    loader's layout (convs ``[C_out, C_in, K]``, linears ``[in, out]``):
+    weights N(0, 1/fan_in) with fan_in = C_in x K or the linear's input,
+    biases zeros. The JAX package's keys and dtypes; its convs are the same
+    weights stored ``[K, C_in, C_out]``."""
+    device = device if device is not None else generator.device
+    ch, ks = cfg.enc_channels, cfg.enc_kernel_sizes
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=dtype, device=device)
+
+    def lin(cin, cout):
+        return normal_init((cin, cout), cin, generator, dtype, device)
+
+    def tdnn(cin, cout, k):
+        return {"w": normal_init((cout, cin, k), cin * k, generator, dtype, device),
+                "b": zeros(cout)}
+
+    blocks: List[dict] = [tdnn(cfg.mel_dim, ch[0], ks[0])]
+    for i in range(1, len(ch) - 1):
+        width = ch[i] // cfg.enc_res2net_scale
+        blocks.append({
+            "tdnn1": tdnn(ch[i - 1], ch[i], 1),
+            "res2net": [tdnn(width, width, ks[i]) for _ in range(cfg.enc_res2net_scale - 1)],
+            "tdnn2": tdnn(ch[i], ch[i], 1),
+            "se": {"w1": lin(ch[i], cfg.enc_se_channels), "b1": zeros(cfg.enc_se_channels),
+                   "w2": lin(cfg.enc_se_channels, ch[i]), "b2": zeros(ch[i])},
+        })
+    asp = tdnn(cfg.enc_attention_channels, ch[-1], 1)
+    return {
+        "blocks": blocks,
+        "mfa": tdnn(sum(ch[1:-1]), ch[-1], ks[-1]),
+        "asp": {"tdnn": tdnn(ch[-1] * 3, cfg.enc_attention_channels, 1),
+                "conv_w": asp["w"], "conv_b": asp["b"]},
+        "fc_w": lin(ch[-1] * 2, cfg.enc_dim),
+        "fc_b": zeros(cfg.enc_dim),
+    }
+
 
 def load_speaker_encoder(st: MultiSafeTensors, cfg: SpeakerEncoderConfig,
                          device: torch.device, prefix: str = "speaker_encoder.") -> dict:

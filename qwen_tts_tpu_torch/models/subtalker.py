@@ -51,6 +51,7 @@ import torch
 from qwen_tts_tpu_torch.config import CodePredictorConfig
 from qwen_tts_tpu_torch.models.trunk import (
     TrunkDims,
+    init_trunk_params,
     quantize_int8,
     trunk_decode_step,
     trunk_prefill,
@@ -62,6 +63,7 @@ from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
 from qwen_tts_tpu_torch.ops.sampling import SamplingConfig, exponential_race, sample_token
 from qwen_tts_tpu_torch.ops.sampling_vec import VecSampling, sample_token_vec
+from qwen_tts_tpu_torch.utils import normal_init
 
 # The sub-talker's environment gates (module docstring), as the JAX package
 # lists them.
@@ -102,6 +104,30 @@ def subtalker_dims(cfg: CodePredictorConfig) -> TrunkDims:
         eps=cfg.rms_norm_eps,
         qk_norm=True,
     )
+
+
+def init_subtalker_params(generator: torch.Generator, cfg: CodePredictorConfig,
+                          talker_hidden: int, dtype=torch.float32, device=None) -> dict:
+    """Random sub-talker weights (training and tests without a checkpoint):
+    the G-1 group tables (talker width) and LM heads stacked, the trunk, the
+    final norm, and ``small_to_mtp_projection`` where the widths differ; the
+    JAX package's keys, shapes and dtypes."""
+    g1 = cfg.num_code_groups - 1
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    device = device if device is not None else generator.device
+    params = {
+        "embeds": w((g1, cfg.vocab_size, talker_hidden), talker_hidden),
+        "trunk": init_trunk_params(generator, subtalker_dims(cfg), dtype, device),
+        "norm": torch.ones((cfg.hidden_size,), dtype=dtype, device=device),
+        "lm_heads": w((g1, cfg.hidden_size, cfg.vocab_size), cfg.hidden_size),
+    }
+    if cfg.hidden_size != talker_hidden:
+        params["input_proj"] = w((talker_hidden, cfg.hidden_size), talker_hidden)
+        params["input_proj_b"] = torch.zeros((cfg.hidden_size,), dtype=dtype, device=device)
+    return params
 
 
 def _project_input(params: dict, x: torch.Tensor) -> torch.Tensor:

@@ -15,10 +15,16 @@ import torch
 import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.config import TalkerConfig
-from qwen_tts_tpu_torch.models.trunk import TrunkDims, trunk_decode_step, trunk_prefill
+from qwen_tts_tpu_torch.models.trunk import (
+    TrunkDims,
+    init_trunk_params,
+    trunk_decode_step,
+    trunk_prefill,
+)
 from qwen_tts_tpu_torch.ops.attention import KVCache, quantize_kv
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import merge_mrope_sections, rope_cos_sin
+from qwen_tts_tpu_torch.utils import normal_init
 
 
 def talker_dims(cfg: TalkerConfig) -> TrunkDims:
@@ -32,6 +38,30 @@ def talker_dims(cfg: TalkerConfig) -> TrunkDims:
         eps=cfg.rms_norm_eps,
         qk_norm=True,
     )
+
+
+def init_talker_params(generator: torch.Generator, cfg: TalkerConfig, dtype=torch.float32,
+                       device=None) -> dict:
+    """Random talker weights (training and tests without a checkpoint):
+    matrices N(0, 1/fan_in), biases zeros, the final norm ones; the JAX
+    package's keys, shapes and dtypes."""
+    d, td = cfg.hidden_size, cfg.text_hidden_size
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    device = device if device is not None else generator.device
+    return {
+        "codec_embedding": w((cfg.vocab_size, d), d),
+        "text_embedding": w((cfg.text_vocab_size, td), td),
+        "text_proj_fc1": w((td, td), td),
+        "text_proj_fc1_b": torch.zeros((td,), dtype=dtype, device=device),
+        "text_proj_fc2": w((td, d), td),
+        "text_proj_fc2_b": torch.zeros((d,), dtype=dtype, device=device),
+        "trunk": init_trunk_params(generator, talker_dims(cfg), dtype, device),
+        "norm": torch.ones((d,), dtype=dtype, device=device),
+        "codec_head": w((d, cfg.vocab_size), d),
+    }
 
 
 def text_project(params: dict, text_hidden: torch.Tensor) -> torch.Tensor:

@@ -32,12 +32,14 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from qwen_tts_tpu_torch.ops.attention import KVCache, attention_prefill, int8_scale, quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_group
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import apply_rope
+from qwen_tts_tpu_torch.utils import normal_init
 
 
 class TrunkDims(NamedTuple):
@@ -56,6 +58,44 @@ _PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "wqkv", "wgu")
 
 def _layer(params: dict, l: int) -> dict:
     return {k: v[l] for k, v in params.items()}
+
+
+def _layers(params: dict, num_layers: int) -> list:
+    """The stacked weights split into per-layer dicts of views, each weight
+    unbound once (its backward stacks the layers' gradients in one step,
+    where indexing layer by layer would add a full-size gradient per
+    layer)."""
+    unbound = {k: v.unbind(0) for k, v in params.items()}
+    return [{k: v[l] for k, v in unbound.items()} for l in range(num_layers)]
+
+
+def init_trunk_params(generator: torch.Generator, dims: TrunkDims, dtype=torch.float32,
+                      device=None) -> dict:
+    """Random stacked trunk weights (training and tests without a
+    checkpoint): projections N(0, 1/fan_in), norms ones; the JAX package's
+    keys, shapes and dtypes."""
+    l, d, h, kv, hd, i = (dims.num_layers, dims.hidden, dims.heads, dims.kv_heads,
+                          dims.head_dim, dims.intermediate)
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    device = device if device is not None else generator.device
+    params = {
+        "wq": w((l, d, h * hd), d),
+        "wk": w((l, d, kv * hd), d),
+        "wv": w((l, d, kv * hd), d),
+        "wo": w((l, h * hd, d), h * hd),
+        "gate": w((l, d, i), d),
+        "up": w((l, d, i), d),
+        "down": w((l, i, d), i),
+        "input_norm": torch.ones((l, d), dtype=dtype, device=device),
+        "post_attn_norm": torch.ones((l, d), dtype=dtype, device=device),
+    }
+    if dims.qk_norm:
+        params["q_norm"] = torch.ones((l, hd), dtype=dtype, device=device)
+        params["k_norm"] = torch.ones((l, hd), dtype=dtype, device=device)
+    return params
 
 
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -154,28 +194,44 @@ def trunk_prefill(
     pad_mask: Optional[torch.Tensor] = None,  # [B, S] True = real
     sliding_window: Optional[int] = None,
     layer_windows: Optional[Sequence[int]] = None,  # per-layer window
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence forward. Returns (hidden [B,S,D], k [L,B,S,KV,hd], v).
 
     ``sliding_window`` applies one window to every layer (codec transformer);
     ``layer_windows`` gives one per layer (talker sliding-window option, with a
-    huge sentinel on full-attention layers). Mutually exclusive."""
+    huge sentinel on full-attention layers). Mutually exclusive.
+
+    ``remat`` (training) runs each layer under ``torch.utils.checkpoint``:
+    the backward pass recomputes a layer's activations from its input
+    instead of keeping them, so peak memory holds one layer's activations
+    and every layer's input, at the cost of a second forward. Same values:
+    the recomputation runs the same ops."""
     if sliding_window is not None and layer_windows is not None:
         raise ValueError("pass sliding_window or layer_windows, not both")
     cos4, sin4 = cos[:, :, None, :], sin[:, :, None, :]
-    ks, vs = [], []
-    for l in range(dims.num_layers):
-        layer = _layer(params, l)
-        window = sliding_window if layer_windows is None else int(layer_windows[l])
-        x = rms_norm(hidden, layer["input_norm"], dims.eps)
+
+    def layer_step(h, layer, window):
+        x = rms_norm(h, layer["input_norm"], dims.eps)
         q, k, v = _project_qkv(layer, x, dims)
         q = apply_rope(q, cos4, sin4)
         k = apply_rope(k, cos4, sin4)
         attn = attention_prefill(q, k, v, pad_mask=pad_mask, sliding_window=window)
-        hidden = hidden + _maybe_scale(
-            layer, "attn_scale", _w_matmul(layer, "wo", attn.flatten(-2)))
-        hidden = hidden + _maybe_scale(
-            layer, "mlp_scale", _mlp(layer, rms_norm(hidden, layer["post_attn_norm"], dims.eps)))
+        h = h + _maybe_scale(layer, "attn_scale", _w_matmul(layer, "wo", attn.flatten(-2)))
+        h = h + _maybe_scale(
+            layer, "mlp_scale", _mlp(layer, rms_norm(h, layer["post_attn_norm"], dims.eps)))
+        return h, k, v
+
+    ks, vs = [], []
+    for l, layer in enumerate(_layers(params, dims.num_layers)):
+        window = sliding_window if layer_windows is None else int(layer_windows[l])
+        if remat:
+            # Nothing in a layer draws random numbers: no RNG state to keep.
+            hidden, k, v = torch.utils.checkpoint.checkpoint(
+                layer_step, hidden, layer, window, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            hidden, k, v = layer_step(hidden, layer, window)
         ks.append(k)
         vs.append(v)
     return hidden, torch.stack(ks), torch.stack(vs)

@@ -187,6 +187,18 @@ class _CodecGraph:
             return self.graph.outputs.clone()
 
 
+def load_text_tokenizer(model_dir: str):
+    """The checkpoint's text tokenizer through ``transformers``, or None
+    without ``transformers`` or tokenizer files (pre-tokenized ids still
+    work)."""
+    try:
+        from transformers import AutoTokenizer
+
+        return AutoTokenizer.from_pretrained(model_dir)
+    except (ImportError, OSError, ValueError):
+        return None
+
+
 class Qwen3TTSModel:
     """Qwen3-TTS inference pipeline on one device."""
 
@@ -239,14 +251,7 @@ class Qwen3TTSModel:
         cfg, talker, subtalker, codec, speaker = load_checkpoint(
             model_dir, talker_dtype=talker_dtype, codec_dtype=codec_dtype,
             device=resolve_device(device))
-        tokenizer = None
-        if load_tokenizer:
-            try:
-                from transformers import AutoTokenizer
-
-                tokenizer = AutoTokenizer.from_pretrained(model_dir)
-            except (ImportError, OSError, ValueError):
-                tokenizer = None  # pre-tokenized prompts still work
+        tokenizer = load_text_tokenizer(model_dir) if load_tokenizer else None
         gen_defaults: Dict[str, Any] = {}
         gc_path = os.path.join(model_dir, "generation_config.json")
         if os.path.exists(gc_path):

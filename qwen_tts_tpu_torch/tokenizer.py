@@ -13,10 +13,11 @@ speech tokenizer's directory and exposes ``encode`` (waveforms → codes) and
   mel, and the CAM++ x-vector when the directory holds ``campplus.onnx``
   (``models/campplus.py``).
 
-A 25 Hz row is cut at its codes' samples, ``repeats x total_upsample`` a
-code (``CodecV1Config.samples_per_code``), which is what the decoder makes
-for it; the JAX package cuts at ``decode_upsample_rate`` a code, which the
-default config sets to twice that.
+A 25 Hz row is cut at ``decode_upsample_rate`` samples a code, as the JAX
+package cuts it; where that rate is above what a code makes
+(``CodecV1Config.samples_per_code``, ``repeats x total_upsample``; the
+default config sets it to twice that), a short row keeps the decode of the
+batch's padding after its own samples.
 """
 
 from __future__ import annotations
@@ -215,11 +216,11 @@ class Qwen3TTSTokenizer:
         """The clips batched (``batch_v1``), ``codec_v1_decode`` with its
         initial noise drawn by a generator on the device seeded by ``seed``
         (a code above ``num_embeds`` raises ``ValueError`` there), each row
-        cut at its codes' samples."""
+        cut at its length x ``decode_upsample_rate``."""
         lengths, codes, xv, mel = self.batch_v1(codes_list, xvectors, ref_mels)
         generator = torch.Generator(device=self.device)
         generator.manual_seed(seed)
         wav = codec_v1.codec_v1_decode(self.params, self.cfg, codes, xv, mel, generator)
         wav = wav.cpu().numpy()
-        up = self.cfg.samples_per_code
+        up = self.cfg.decode_upsample_rate
         return [wav[i, : n * up] for i, n in enumerate(lengths)], self.cfg.output_sample_rate

@@ -1,8 +1,10 @@
-"""Device selection for the port's entry points, and f32 without TF32."""
+"""Device selection for the port's entry points, f32 without TF32, and the
+random initialisers' normal draw."""
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Iterator, Union
 
 import torch
@@ -35,3 +37,12 @@ def full_f32() -> Iterator[None]:
             yield
     finally:
         matmul.allow_tf32 = before
+
+
+def normal_init(shape, fan_in, generator: torch.Generator, dtype=torch.float32,
+                device=None) -> torch.Tensor:
+    """N(0, 1) / sqrt(fan_in) drawn in f32 on ``generator``'s device (the JAX
+    initialisers' distribution), cast to ``dtype`` on ``device`` (the
+    generator's unless given)."""
+    w = torch.randn(shape, generator=generator, device=generator.device) / math.sqrt(fan_in)
+    return w.to(device=device if device is not None else generator.device, dtype=dtype)

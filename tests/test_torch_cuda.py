@@ -1012,3 +1012,87 @@ def test_prompt_built_on_another_thread_during_a_capture(device, tmp_path):
     assert all(torch.equal(g, want) for g in got)
     assert len(set(built)) == 1
     graphs.clear()
+
+
+def _tiny_training(seed=0):
+    """Tiny talker and sub-talker params and a batch (CPU), ragged pads,
+    codes drawn from a small range so the embedding gathers repeat rows."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch.config import tiny_tts_config
+    from qwen_tts_tpu_torch.models.subtalker import init_subtalker_params
+    from qwen_tts_tpu_torch.models.talker import init_talker_params
+    from qwen_tts_tpu_torch.training.sft import SFTBatch
+
+    cfg = tiny_tts_config().talker
+    gen = torch.Generator().manual_seed(seed)
+    params = {"talker": init_talker_params(gen, cfg),
+              "subtalker": init_subtalker_params(gen, cfg.code_predictor, cfg.hidden_size)}
+    r = np.random.default_rng(seed)
+    b, s = 3, 24
+    pad = torch.ones((b, s), dtype=torch.bool)
+    pad[1, -5:] = False
+    batch = SFTBatch(
+        inputs_embeds=torch.tensor(r.standard_normal((b, s, cfg.hidden_size)), dtype=torch.float32),
+        pad_mask=pad,
+        codec0_labels=torch.tensor(r.integers(0, 8, (b, s))),
+        group_labels=torch.tensor(r.integers(0, 8, (b, s, cfg.num_code_groups))),
+        frame_mask=pad.clone())
+    return cfg, params, batch
+
+
+def test_sft_backward_is_deterministic_on_the_card(device):
+    """The train step's scatter-adds (the embedding gathers' and the
+    cross-entropy's backward passes) use float atomics on the card unless
+    deterministic algorithms are on: under ``step_mode`` two backward passes
+    give the same bits, and so do two whole steps."""
+    from qwen_tts_tpu_torch.training.sft import (
+        SFTBatch, loss_and_grads, make_optimizer, make_train_step, step_mode, tree_leaves,
+        tree_map)
+
+    cfg, params, batch = _tiny_training()
+    params = tree_map(lambda t: t.to(device), params)
+    batch = SFTBatch(*(t.to(device) for t in batch))
+    with step_mode(device):
+        runs = [loss_and_grads(params, cfg, batch) for _ in range(3)]
+    for run in runs[1:]:
+        assert torch.equal(run[0], runs[0][0])
+        for a, b in zip(tree_leaves(run[2]), tree_leaves(runs[0][2])):
+            assert torch.equal(a, b)
+    opt = make_optimizer(1e-3)
+    step = make_train_step(cfg, opt)
+    one = step(tree_map(torch.clone, params), opt.init(params), batch)[:2]
+    two = step(tree_map(torch.clone, params), opt.init(params), batch)[:2]
+    for a, b in zip(tree_leaves(one), tree_leaves(two)):
+        assert torch.equal(a, b)
+
+
+def test_sft_step_on_the_card_matches_the_cpu(device):
+    """One train step, card (f32, no TF32) against CPU from the same params
+    and batch: the loss and its terms in summation order only, every
+    gradient leaf close; the step's params those of the CPU's optimizer
+    applied to the card's gradients (the same inputs, so a first Adam update
+    cannot flip sign on a gradient at the noise level)."""
+    from qwen_tts_tpu_torch.training.sft import (
+        SFTBatch, loss_and_grads, make_optimizer, make_train_step, step_mode, tree_leaves,
+        tree_map)
+
+    cfg, params, batch = _tiny_training(1)
+    card_params = tree_map(lambda t: t.to(device), params)
+    card_batch = SFTBatch(*(t.to(device) for t in batch))
+    with step_mode(device):
+        loss, aux, grads = loss_and_grads(card_params, cfg, card_batch)
+    want_loss, want_aux, want_grads = loss_and_grads(params, cfg, batch)
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for k in aux:
+        assert abs(float(aux[k]) - float(want_aux[k])) <= 1e-5 * abs(float(want_aux[k]))
+    for g, w in zip(tree_leaves(grads), tree_leaves(want_grads)):
+        den = float(torch.linalg.norm(w))
+        err = float(torch.linalg.norm(g.cpu() - w))
+        assert err <= 1e-4 * den or (den == 0 and err == 0)
+    opt = make_optimizer(1e-3)
+    got = make_train_step(cfg, opt)(card_params, opt.init(card_params), card_batch)[0]
+    want = params
+    opt.step(tree_map(lambda t: t.cpu(), grads), opt.init(want), want)
+    for g, w in zip(tree_leaves(got), tree_leaves(want)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-7)

@@ -128,8 +128,9 @@ def test_decode_matches_jax_in_every_payload_form(toks):
 
 
 def test_trim_at_the_samples_a_code_makes(toks):
-    """decode_upsample_rate 32 where a code makes 16 samples: the port cuts
-    each row at 16 a code; JAX's cut at 32 keeps the short row's padding."""
+    """decode_upsample_rate 32 where a code makes 16 samples: both packages
+    cut each row at its length x 32, so the short row keeps the decode of
+    the batch's padding; the port's rows are JAX's in shape and samples."""
     jtok, ttok = toks["up32"]
     assert ttok.get_decode_upsample_rate() == jtok.get_decode_upsample_rate() == 32
     assert ttok.cfg.samples_per_code == 16
@@ -138,9 +139,9 @@ def test_trim_at_the_samples_a_code_makes(toks):
     wavs, _ = ttok.decode(payload, seed=1)
     j_wavs, _ = jtok.decode(payload)
     for i, n in enumerate(LENGTHS):
-        assert wavs[i].shape == (n * 16,)
-        _close(wavs[i], full[i, : n * 16])
-    assert j_wavs[1].shape == (min(3 * 32, full.shape[1]),) != wavs[1].shape
+        assert wavs[i].shape == j_wavs[i].shape == (min(n * 32, full.shape[1]),)
+        _close(wavs[i], full[i, : n * 32])
+    assert wavs[1].shape[0] > LENGTHS[1] * 16  # the padding's decode is kept
 
 
 def test_encode_matches_jax_from_arrays_tuples_and_a_path(toks, tmp_path):
