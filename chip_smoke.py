@@ -139,7 +139,8 @@ Phases, each of which exits non-zero on failure:
    its length, the first chunk's latency over 3 streams); on the Base
    checkpoint (prefill buckets 32 and 96) a /clone_voice from inline PCM,
    taken while another request decodes, and a /tts in that voice;
-13. fast modes (``phase_fast_modes``): fused trunk projections (bf16 and
+13. fast modes (``phase_fast_modes``, at the talker cut to
+   ``FAST_TALKER_LAYERS`` layers): fused trunk projections (bf16 and
    the serving mode), the Jacobi sub-talker (B 4 and 8), the sub-talker int8
    KV cache and the sub-talker's gates in the captured programs' keys, on
    the same checkpoint: codes against the routes they replace (near ties
@@ -171,7 +172,29 @@ Phases, each of which exits non-zero on failure:
    frames in the new voice (its speaker row the baked embedding); the EMA
    VQ at the Whisper-VQ widths, 3 steps card against CPU (codes with near
    ties only, untouched codes' buffers), then one k-means-initialised step
-   with dead-code expiry. No kernel of the port's is on the training path.
+   with dead-code expiry. No kernel of the port's is on the training path;
+16. parallelism (``phase_parallel``), on the one card: (a) the two-stage
+   talker | codec pipeline (``parallel/pipeline.py``) with both stages on
+   cuda:0, two streams, bf16 talker and codec, B=1, greedy: codes equal to
+   ``generate_codes`` at its prompt bucket, each chunk the bits of its
+   window's ``codec_decode`` alone, the vocoder block's launches exact, the
+   wall beside the two stages' device times; (b) a child with a one-rank
+   NCCL group, tp 1, the bf16 path through the captured frames: codes equal
+   to the run with no group, the NCCL kernels of a profiled replayed segment
+   against the all-reduces the code issues a frame, ms a frame with and
+   without the group, and the frame captured again with its all-reduces as
+   averages (one kernel each on one rank): the same codes, one more kernel
+   in the replay for each collective; (c) four children at dp 2 x tp 2 over
+   gloo sharing the card, f32, B=4, 16 greedy frames (eager): codes equal on every rank
+   of a dp shard and equal to the unsharded f32 run or first apart at a near
+   tie, decode attention launched exactly per rank at the shard's heads, and
+   one dp-2 EMA VQ step at the Whisper-VQ widths against the full-batch step;
+   decode attention held against its plain version at the tp shard's
+   shapes; (d) the SFT CLI's run with ``--dp 2 --tp 2`` in the four ranks of
+   (c), as under a launcher, on the Base checkpoint with the talker cut to 4
+   layers: the step-0 loss against one device's, the snapshot's tensors one
+   device's names, shapes and dtypes. The children load the kernels phase 2
+   built.
 
 Phase 7's ``QTTS_ST_KV8=1`` run also feeds the card's sub-talker int8 cache
 to the CPU (``hold_fed_subtalker_kv``) and holds the logits within
@@ -186,6 +209,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
 import json
 import math
 import os
@@ -793,7 +817,7 @@ def time_attention(kernel, plain, q, runs, vf, int8: bool, label: str):
     s_max, kv = k0.shape[1], k0.shape[2]
     call = _rotating(lambda k, v, cl: kernel(q, k, v, cl, vf), runs)
     kernel_ms = _time_ms(call)
-    device_ms = _device_us(call, "decode_attention_kernel", iters=max(50, 2 * len(runs))) / 1e3
+    device_ms = _device_ms(call, "decode_attention_kernel", iters=max(50, 2 * len(runs)))
     plain_ms = _time_ms(_rotating(lambda k, v, cl: plain(q, k, v, cl, vf), runs),
                         iters=40, warmup=5)
     library_ms = None
@@ -1142,7 +1166,7 @@ def time_subtalker_step(packed, b: int, gen, groups: int = 16, eps: float = 1e-6
         return subtalker_step(packed, x, cos[pos], sin[pos], kc, vc, pos, eps, timeline)
 
     kernel_ms = _time_ms(step)
-    device_ms = _device_us(step, "subtalker_step_kernel", iters=20) / 1e3
+    device_ms = _device_ms(step, "subtalker_step_kernel", iters=20)
     plain_ms = _time_ms(lambda: subtalker_step_plain(packed, x, cos[pos], sin[pos], kc, vc, pos,
                                                      eps), iters=20, warmup=3)
     bound_ms, bound_by = subtalker_step_bound(packed, b, pos, 2)
@@ -1399,7 +1423,7 @@ def vocoder_block_library(x, block: dict, rate: int):
     return h.transpose(1, 2)
 
 
-def _device_us(fn, name: str, iters: int = 5, per_call: int = 1, merge: bool = False) -> float:
+def _device_us(fn, name: str, iters: int = 5, per_call: int = 1, merge: bool = False):
     """Mean device time (us) per call of the kernels whose name holds
     ``name`` over ``iters`` calls, from torch.profiler. Each such kernel is
     launched ``per_call`` times a call; with ``merge`` all kernels so named
@@ -1411,8 +1435,10 @@ def _device_us(fn, name: str, iters: int = 5, per_call: int = 1, merge: bool = F
     it is taken again, up to three times in all (on the H100 a full
     chip_smoke run has seen such a profile keep 18 and 25 of 100 launches,
     where the same launches profiled alone were all kept, and one profile
-    of the plain int8 route keep no device event at all); it fails when none
-    saw them all."""
+    of the plain int8 route keep no device event at all, and three profiles
+    in a row keep none of the int8 GEMM's). Where none saw them all the time
+    is not measured: it logs so and returns None (CUDA events still time
+    every kernel)."""
     from collections import defaultdict
 
     import torch
@@ -1440,8 +1466,21 @@ def _device_us(fn, name: str, iters: int = 5, per_call: int = 1, merge: bool = F
                        for runs in launches.values()) / iters
         log(f"profile {attempt + 1} of 3 kept too few launches ({list(short.values())} of the "
             f"{want} of the last {iters} calls: {[k[:60] for k in short]}); taken again")
-    fail(f"the profiler saw no kernel named like {name!r}, or fewer launches than the {want} of "
-         f"the last {iters} calls, in three profiles")
+    log(f"profiler: no profile of three saw all {want} launches of the last {iters} calls of "
+        f"the kernels named like {name!r}; their device time is not measured")
+    return None
+
+
+def _device_ms(fn, name: str, scale: float = 1.0, **kw):
+    """``_device_us`` in ms, times ``scale``; None where not measured."""
+    us = _device_us(fn, name, **kw)
+    return None if us is None else scale * us / 1e3
+
+
+def _sum_measured(values):
+    """The sum of times, None if any of them was not measured."""
+    values = list(values)
+    return None if any(v is None for v in values) else sum(values)
 
 
 def hold_vocoder_block(x, block: dict, rate: int, label: str, split: int = 0) -> float:
@@ -1491,7 +1530,7 @@ def time_vocoder_readings(fn, iters: int = 10) -> dict:
         alone.append(start.elapsed_time(end))
     return {"events_ms": back_to_back, "events_alone_ms": statistics.median(alone),
             "host_ms": statistics.median(host),
-            "device_ms": _device_us(fn, "vocoder_block_kernel", iters=iters) / 1e3}
+            "device_ms": _device_ms(fn, "vocoder_block_kernel", iters=iters)}
 
 
 def time_vocoder_path():
@@ -1696,7 +1735,7 @@ def phase_kernels_vocoder_block():
                  f"(2 launches: b2 384->192 s=4 T_in {path[0]['T_in']}, b3 192->96 s=3 "
                  f"T_in {path[1]['T_in']}); per-block rows (B=4; B=32 x 128 frames with 3 "
                  f"and 7 taps; B=1 stream windows of {STREAM_FRAMES} frames) in 'blocks'",
-        "ms": sum(r["ms"] for r in path), "device_ms": sum(r["device_ms"] for r in path),
+        "ms": sum(r["ms"] for r in path), "device_ms": _sum_measured(r["device_ms"] for r in path),
         "plain_ms": sum(r["plain_ms"] for r in path),
         "library_ms": sum(r["library_ms"] for r in path),
         "bound_ms": sum(r["bound_ms"] for r in path),
@@ -1903,8 +1942,7 @@ def time_int8_matmul(layers, heads, library_error) -> dict:
             call = _rotating(lambda *ws: int8_matmul_group(x, ws, f32_out), groups)
             rec = {"launch": kind, "M": m, "N": [w.shape[1] for w, _ in groups[0]],
                    "ms": _time_ms(call),
-                   "device_ms": _device_us(call, "int8_matmul_kernel", iters=40,
-                                           merge=True) / 1e3,
+                   "device_ms": _device_ms(call, "int8_matmul_kernel", iters=40, merge=True),
                    "bound_ms": _int8_bytes(x, groups[0], f32_out) / H100_BYTES_PER_S * 1e3}
             log(f"kernel time: int8_matmul launch {json.dumps(rec)}")
             rows["per_launch"].append(rec)
@@ -1915,18 +1953,17 @@ def time_int8_matmul(layers, heads, library_error) -> dict:
             kernel = _rotating(lambda ws: int8_matmul(x, *ws, f32_out), weights)
             plain = _rotating(lambda ws: int8_matmul_plain(x, *ws, f32_out), weights)
             rec = {"proj": name, "K": k, "N": n, "M": m, "ms": _time_ms(kernel),
-                   "device_ms": _device_us(kernel, "int8_matmul_kernel", iters=40,
-                                           merge=True) / 1e3,
+                   "device_ms": _device_ms(kernel, "int8_matmul_kernel", iters=40, merge=True),
                    "plain_ms": _time_ms(plain),
                    # every kernel of the plain route: the cast, cuBLAS, the scale
-                   "plain_device_ms": _device_us(plain, "", iters=40) / 1e3,
+                   "plain_device_ms": _device_ms(plain, "", iters=40),
                    "bound_ms": _int8_bytes(x, weights[0], f32_out) / H100_BYTES_PER_S * 1e3,
                    "library_ms": None, "library_device_ms": None}
             if library_error is None and not f32_out:
                 packed = [(w.t().contiguous(), s.reshape(-1).contiguous()) for (w, s), in weights]
                 lib = _rotating(lambda w, s: _int8_library(x, w, s), packed)
                 rec["library_ms"] = _time_ms(lib)
-                rec["library_device_ms"] = _device_us(lib, "", iters=40) / 1e3
+                rec["library_device_ms"] = _device_ms(lib, "", iters=40)
                 del packed
             log(f"kernel time: int8_matmul {json.dumps(rec)}")
             rows["projections"].append(rec)
@@ -1946,17 +1983,20 @@ def time_int8_matmul(layers, heads, library_error) -> dict:
 
     grouped = _rotating(layer_grouped, [(layer,) for layer in layers])
     single = _rotating(layer_single, [(layer,) for layer in layers])
-    step = {"grouped_device_ms": INT8_ROTATE * _device_us(
-                grouped, "int8_matmul_kernel", iters=40, per_call=4, merge=True) / 1e3,
-            "single_device_ms": INT8_ROTATE * _device_us(
-                single, "int8_matmul_kernel", iters=40, per_call=7, merge=True) / 1e3,
+    step = {"grouped_device_ms": _device_ms(grouped, "int8_matmul_kernel", INT8_ROTATE,
+                                            iters=40, per_call=4, merge=True),
+            "single_device_ms": _device_ms(single, "int8_matmul_kernel", INT8_ROTATE,
+                                           iters=40, per_call=7, merge=True),
             "grouped_ms": INT8_ROTATE * _time_ms(grouped),
             "single_ms": INT8_ROTATE * _time_ms(single)}
     talker = [r for r in rows["projections"] if r["M"] == 4 and r["proj"] != "lm_head"]
-    step["plain_device_ms"] = INT8_ROTATE * sum(r["plain_device_ms"] for r in talker)
+    plain_device_ms = _sum_measured(r["plain_device_ms"] for r in talker)
+    step["plain_device_ms"] = None if plain_device_ms is None else INT8_ROTATE * plain_device_ms
     step["plain_ms"] = INT8_ROTATE * sum(r["plain_ms"] for r in talker)
-    step["library_device_ms"] = (None if library_error else
-                                 INT8_ROTATE * sum(r["library_device_ms"] for r in talker))
+    library_device_ms = None if library_error else _sum_measured(
+        r["library_device_ms"] for r in talker)
+    step["library_device_ms"] = (None if library_device_ms is None else
+                                 INT8_ROTATE * library_device_ms)
     step["library_ms"] = (None if library_error else
                           INT8_ROTATE * sum(r["library_ms"] for r in talker))
     step["bound_ms"] = INT8_ROTATE * sum(r["bound_ms"] for r in rows["per_launch"]
@@ -1991,14 +2031,18 @@ def phase_kernels_int8_matmul():
         log(f"library: torch._weight_int8pack_mm does not run on the card: {library_error}")
     rows, step = time_int8_matmul(layers, heads, library_error)
     log(f"int8_matmul: the talker's int8 GEMMs of one serving decode step (20 layers, M=4, "
-        f"bf16): 80 grouped launches {step['grouped_device_ms']:.4f} ms device "
+        f"bf16): 80 grouped launches {step['grouped_device_ms']} ms device "
         f"({step['grouped_ms']:.4f} by events), the same products as 140 single launches "
-        f"{step['single_device_ms']:.4f} ({step['single_ms']:.4f}), plain cast + cuBLAS route "
-        f"{step['plain_device_ms']:.4f}, torch._weight_int8pack_mm {step['library_device_ms']}, "
-        f"byte bound {step['bound_ms']:.4f} ms")
-    if not 0 < step["grouped_device_ms"] < step["plain_device_ms"]:
-        fail("int8_matmul: the projections take longer on the card than the cast + cuBLAS "
-             "route")
+        f"{step['single_device_ms']} ({step['single_ms']:.4f}), plain cast + cuBLAS route "
+        f"{step['plain_device_ms']} ({step['plain_ms']:.4f}), torch._weight_int8pack_mm "
+        f"{step['library_device_ms']}, byte bound {step['bound_ms']:.4f} ms")
+    # Device times where the profiler measured both, else CUDA events.
+    clock = ("device" if None not in (step["grouped_device_ms"], step["plain_device_ms"])
+             else "events")
+    key = "_device_ms" if clock == "device" else "_ms"
+    if not 0 < step["grouped" + key] < step["plain" + key]:
+        fail(f"int8_matmul: the projections take longer on the card than the cast + cuBLAS "
+             f"route ({clock})")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "qwen_tts_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "qwen_tts_tpu/models/trunk.py:114 (_w_matmul, not a TPU kernel)",
@@ -3744,9 +3788,9 @@ def counting_captures():
 
     count, orig = [0], graphs.Graph._capture
 
-    def counting(self, fn, generator):
+    def counting(self, *args):
         count[0] += 1
-        return orig(self, fn, generator)
+        return orig(self, *args)
 
     graphs.Graph._capture = counting
     try:
@@ -4254,6 +4298,11 @@ def phase_serving(model_dir: str, base_dir: str, smi: str) -> dict:
 # The fast-modes phase decodes this many frames a run (two flag reads), in a
 # cache of MAX_NEW frames.
 FAST_FRAMES = 16
+# Phase 13 runs the talker cut to its first 4 layers (widths full), as
+# phase 10 does: the modes change the sub-talker and the trunks' products,
+# which every layer repeats (cut from 20 layers to make room for phase 16;
+# its ms a frame are not those of the full depth).
+FAST_TALKER_LAYERS = 4
 FAST_VOICES = (("aiden", "english"), ("serena", "auto"), ("aiden", "chinese"),
                ("serena", "english"))
 # Kernel names of cuBLAS's and CUTLASS's GEMMs in a profile.
@@ -4489,6 +4538,7 @@ def phase_fast_modes(model_dir: str, smi: str) -> dict:
 
     model = Qwen3TTSModel.from_pretrained(model_dir, load_tokenizer=False)
     model.tokenizer = ChatTemplateTokenizer()
+    cut_talker_depth(model, FAST_TALKER_LAYERS)
     tk = model.cfg.talker
     g, layers = tk.num_code_groups, tk.num_hidden_layers
     st_layers = tk.code_predictor.num_hidden_layers
@@ -5818,6 +5868,854 @@ def phase_training(base_dir: str, smi: str, device: str = "cuda") -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# --------------------------------------------------------------------------
+# Phase 16: parallelism
+# --------------------------------------------------------------------------
+
+PARALLEL_SEGMENT = 25          # the pipeline's segment (the JAX module's default)
+PARALLEL_FRAMES = 51           # 25 + 25 + 1 generated: 50 emitted, three codec windows
+PARALLEL_CONTEXT = 25
+NCCL_FRAMES = 16               # the one-rank NCCL decode: B = 4 texts, greedy
+DP_TP_FRAMES = 16              # the dp 2 x tp 2 decode: B = 4, f32, greedy
+CHILD_TIMEOUT = 300            # seconds a child of phase 16 may run
+# NCCL kernels a one-rank group launches for an in-place sum: none (NCCL
+# leaves the buffer as it is; seen in phase 16's first run on an H100, where
+# 215 all-reduces a frame were captured and the replay ran no NCCL kernel).
+# Each all-reduce is one kernel at two ranks or more. A one-rank average is
+# one kernel (NCCL multiplies by 1 / ranks), which (b)'s probe counts.
+NCCL_ONE_RANK_KERNELS = 0
+# The pipeline's whole waveform against ``decode_codes`` of all its codes:
+# bf16 codec windows of another length than one decode of every frame
+# (logged, not held: the chunks are held bit for bit against their windows).
+# The SFT step-0 loss at dp 2 x tp 2 against one device: JAX's tolerance
+# (tests/test_sft_script_e2e.py:111), set before the first run.
+PARALLEL_LOSS_RTOL = 1e-5
+# The VQ step at dp 2 against the full batch: buffers within this of their
+# largest value (sums over the ranks in another order), set before the run.
+PARALLEL_VQ_BUFFER_REL = 1e-5
+
+
+def frame_collectives(cfg) -> int:
+    """All-reduces a decode frame issues over its tp group, from the code:
+    two a trunk layer (after o and after down) for every talker layer and
+    every sub-talker position's layers, and one gather (an all-reduce of a
+    zero-filled tensor) for each of the G - 1 sub-talker heads."""
+    cp = cfg.code_predictor
+    return (2 * (cfg.num_hidden_layers + cfg.num_code_groups * cp.num_hidden_layers)
+            + cfg.num_code_groups - 1)
+
+
+def _child_env() -> dict:
+    env = dict(os.environ)
+    env.pop("MASTER_ADDR", None)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def start_children(fn: str, world: int, work: str, **kwargs):
+    """``fn`` (a function of this script) in ``world`` child processes, each
+    a rank that rendezvouses through a file in ``work``; returns the
+    processes. They import the port, load the kernels phase 2 built and
+    build nothing."""
+    os.makedirs(work, exist_ok=True)
+    with open(os.path.join(work, "args.json"), "w") as f:
+        json.dump(kwargs, f)
+    code = ("import sys, chip_smoke as c; "
+            "c.run_child(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])")
+    procs = []
+    for r in range(world):
+        # Output to a file, not a pipe: a rank blocked on a full pipe that is
+        # not being read would hold up its group's collectives.
+        with open(os.path.join(work, f"log{r}.txt"), "w") as out:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", code, fn, str(r), str(world), work],
+                stdout=out, stderr=subprocess.STDOUT, text=True, env=_child_env(),
+                cwd=os.path.dirname(os.path.abspath(__file__))))
+    return procs
+
+
+def child_log(work: str, rank: int) -> str:
+    """The last 4000 characters a child of phase 16 wrote."""
+    with open(os.path.join(work, f"log{rank}.txt"), errors="replace") as f:
+        return f.read()[-4000:]
+
+
+def wait_children(procs, work: str, what: str, timeout: float = CHILD_TIMEOUT) -> list:
+    """Every child's result (``out<rank>.json``); a child that fails or
+    outlives ``timeout`` fails the phase (the others are killed)."""
+    deadline = time.monotonic() + timeout
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                fail(f"{what}: rank {r} outlived {timeout} s:\n{child_log(work, r)}")
+            if p.returncode != 0:
+                fail(f"{what}: rank {r} exited {p.returncode}:\n{child_log(work, r)}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = []
+    for r in range(len(procs)):
+        with open(os.path.join(work, f"out{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def run_child(fn: str, rank: int, world: int, work: str) -> None:
+    """A child of phase 16: ``fn(rank, world, work, **args)``, its result to
+    ``out<rank>.json``."""
+    with open(os.path.join(work, "args.json")) as f:
+        kwargs = json.load(f)
+    result = globals()[fn](rank, world, work, **kwargs)
+    with open(os.path.join(work, f"out{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def _parallel_prompts(model, texts, speakers):
+    from qwen_tts_tpu_torch.generate import batch_prompts
+
+    model.tokenizer = ChatTemplateTokenizer()
+    prompts = [card_prompt(model, t, s) for t, s in zip(texts, speakers)]
+    embeds, mask, trailing, _ = batch_prompts(prompts)
+    dtype = model.talker_params["norm"].dtype
+    return embeds.to(dtype), mask, trailing.to(dtype)
+
+
+def _greedy_banned(frames: int):
+    from qwen_tts_tpu_torch.ops.sampling import SamplingConfig
+
+    return (SamplingConfig(do_sample=False, repetition_penalty=1.0, min_new_tokens=frames + 1),
+            SamplingConfig(do_sample=False))
+
+
+def set_mark(marks: str, name: str) -> None:
+    """Leave the mark ``name`` in ``marks`` (phase 16's order of card work)."""
+    open(os.path.join(marks, name), "w").close()
+
+
+def await_mark(marks: str, name: str, t0: float) -> None:
+    """In a child of phase 16: wait for the mark ``name`` in ``marks``;
+    raises CHILD_TIMEOUT seconds after ``t0``."""
+    while not os.path.exists(os.path.join(marks, name)):
+        if time.perf_counter() - t0 > CHILD_TIMEOUT:
+            raise RuntimeError(f"no {name!r} mark after {CHILD_TIMEOUT} s")
+        time.sleep(0.05)
+
+
+def _profiled_kernels(decode) -> dict:
+    """``decode()`` under torch.profiler: (device events it ran, by name)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        decode()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def child_nccl(rank: int, world: int, work: str, model_dir: str, marks: str) -> dict:
+    """Phase 16 (b): a one-rank NCCL group, tp 1, the bf16 path through the
+    captured frames: the codes with and without the group, ms a frame with
+    and without, then the kernels of a profiled replayed frame with the
+    all-reduces as sums (the path's) and as averages (the probe). Loads
+    after the mark "go", times its frames after "quiet" and leaves "timed"
+    (see ``phase_parallel``)."""
+    import torch
+    import torch.distributed as dist
+
+    from qwen_tts_tpu_torch import graphs
+    from qwen_tts_tpu_torch.generate import decode_segment, generate_codes, init_decode
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from qwen_tts_tpu_torch.parallel import comm
+    from qwen_tts_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from qwen_tts_tpu_torch.parallel.multihost import init_multihost
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    t0 = time.perf_counter()
+    stamps = [("start", t0)]
+    init_multihost(f"file://{work}/store", 1, 0)  # one rank, one card: NCCL by the rule
+    backend = dist.get_backend()
+    mesh = make_mesh(tp=1)
+    stamps.append(("nccl init", time.perf_counter()))
+    await_mark(marks, "go", t0)
+    stamps.append(("wait for go", time.perf_counter()))
+    model = Qwen3TTSModel.from_pretrained(model_dir, load_tokenizer=False)
+    stamps.append(("load", time.perf_counter()))
+    inputs = _parallel_prompts(model, TEXTS, ["aiden", "serena", "aiden", "serena"])
+    shards = shard_params(mesh, model.talker_params, model.subtalker_params, model.cfg.talker)
+    sampling, st_sampling = _greedy_banned(NCCL_FRAMES)
+    runs = {"no group": (model.talker_params, model.subtalker_params, model.cfg.talker),
+            "group": (shards.talker, shards.subtalker, shards.cfg)}
+
+    def codes(name):
+        t, s, c = runs[name]
+        return generate_codes(t, s, c, *inputs, sampling=sampling, st_sampling=st_sampling,
+                              max_new_tokens=NCCL_FRAMES, generator=None).codes
+
+    def state_of(name):
+        t, _, c = runs[name]
+        return init_decode(t, c, inputs[0], inputs[1], sampling=sampling,
+                           max_cache_len=inputs[0].shape[1] + NCCL_FRAMES, generator=None)
+
+    def run_segment(name, state, frames):
+        t, s, c = runs[name]
+        decode_segment(t, s, c, state, inputs[2], sampling=sampling, st_sampling=st_sampling,
+                       segment=frames, step_limit=NCCL_FRAMES)
+
+    def segment_ms(name):
+        state = state_of(name)
+        torch.cuda.synchronize()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        run_segment(name, state, NCCL_FRAMES)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / NCCL_FRAMES
+
+    def profiled_frame(name):
+        # The profiler of the card's machine has lost device events in a full
+        # run; a profile that lacks one of the frame's decode-attention
+        # launches (the count its wrapper adds at the replay) is taken again.
+        for _ in range(3):
+            state = state_of(name)
+            torch.cuda.synchronize()
+            before = decode_attention.launches
+            kernels = _profiled_kernels(lambda: run_segment(name, state, 1))
+            want = decode_attention.launches - before
+            seen = sum(n for k, n in kernels.items() if "decode_attention_kernel" in k)
+            if want > 0 and seen == want:
+                return kernels
+            retaken.append(f"{name}: {seen} of {want}")
+        raise RuntimeError(f"no profile of three held the frame's {want} decode-attention "
+                           f"launches")
+
+    retaken = []  # the profiles taken again: decode-attention launches seen of those run
+    calls = comm.all_reduce.calls
+    got = {name: codes(name) for name in runs}  # the first call of each captures
+    captured_calls = comm.all_reduce.calls - calls
+    got2 = codes("group")
+    stamps.append(("captures and runs", time.perf_counter()))
+    await_mark(marks, "quiet", t0)
+    stamps.append(("wait for quiet", time.perf_counter()))
+    ms = {name: [] for name in runs}
+    for i in range(6):
+        name = ("no group", "group")[i % 2 if i < 2 or i >= 4 else 1 - i % 2]
+        ms[name].append(segment_ms(name))
+    stamps.append(("timings", time.perf_counter()))
+    set_mark(marks, "timed")
+    summed = profiled_frame("group")
+    # The probe: the frame captured again with every all-reduce an average,
+    # which on one rank multiplies by 1 (the same bits) and which NCCL runs
+    # as a kernel, where a one-rank sum is none.
+    sum_all_reduce = dist.all_reduce
+
+    def averaged(tensor, group=None):  # comm.all_reduce's call
+        return sum_all_reduce(tensor, op=dist.ReduceOp.AVG, group=group)
+
+    graphs.clear()
+    dist.all_reduce = averaged
+    try:
+        probe_codes = codes("group")
+        averaged_kernels = profiled_frame("group")
+    finally:
+        dist.all_reduce = sum_all_reduce
+    stamps.append(("profiles", time.perf_counter()))
+    dist.destroy_process_group()
+    return {"equal": bool(torch.equal(got["group"], got["no group"])),
+            "repeat_equal": bool(torch.equal(got2, got["group"])),
+            "probe_equal": bool(torch.equal(probe_codes, got["no group"])),
+            "backend": str(backend), "codes_shape": list(got["group"].shape),
+            "captured_calls": captured_calls, "summed": summed, "averaged": averaged_kernels,
+            "retaken": retaken,
+            "ms": ms, "seconds": {b[0]: round(b[1] - a[1], 2) for a, b in zip(stamps, stamps[1:])}}
+
+
+def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, marks: str,
+                sft_argv: list) -> dict:
+    """Phase 16 (c) and (d) in one rank of dp 2 x tp 2 over gloo, the ranks
+    sharing the card: f32 weights, B = 4, greedy, the frames run eagerly
+    (gloo's collectives cannot be captured); one dp-2 VQ step at the
+    Whisper-VQ widths on the dp group; then the SFT CLI's run
+    (``sft_12hz.train`` on ``sft_argv``) on these ranks, as under a
+    launcher. Loads after the mark "go", leaves "loaded<rank>" and decodes
+    after "timed" (see ``phase_parallel``)."""
+    import io
+
+    import torch
+
+    from qwen_tts_tpu_torch.generate import generate_codes
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from qwen_tts_tpu_torch.parallel.mesh import make_mesh, mesh_place, shard_params, shard_rows
+    from qwen_tts_tpu_torch.parallel.multihost import init_multihost
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+    from qwen_tts_tpu_torch.training import sft_12hz
+    from qwen_tts_tpu_torch.training.sft import step_mode
+    from qwen_tts_tpu_torch.training.vq import make_sharded_vq_train_step
+
+    t0 = time.perf_counter()
+    init_multihost(f"file://{work}/store", world, rank)  # 4 ranks, 1 card: gloo by the rule
+    backend = torch.distributed.get_backend()
+    await_mark(marks, "go", t0)
+    t1 = time.perf_counter()
+    mesh = make_mesh(tp=2)
+    model = Qwen3TTSModel.from_pretrained(model_dir, talker_dtype=torch.float32,
+                                          load_tokenizer=False)
+    inputs = _parallel_prompts(model, TEXTS, ["aiden", "serena", "aiden", "serena"])
+    shards = shard_params(mesh, model.talker_params, model.subtalker_params, model.cfg.talker)
+    del model
+    rows = [shard_rows(mesh, x) for x in inputs]
+    sampling, st_sampling = _greedy_banned(DP_TP_FRAMES)
+    decode_attention.launches = 0
+    t_load = time.perf_counter()
+    set_mark(marks, f"loaded{rank}")
+    # ``step_mode`` (the VQ step's and (d)'s) imports torch._inductor's
+    # config at its first call, ~10 s in four ranks at once: imported on a
+    # thread while the rank waits for "timed" and decodes (waiting on gloo
+    # for most of it).
+    warm = threading.Thread(target=importlib.import_module, args=("torch._inductor.config",))
+    warm.start()
+    await_mark(marks, "timed", t0)
+    t2 = time.perf_counter()
+    out = generate_codes(shards.talker, shards.subtalker, shards.cfg, *rows, sampling=sampling,
+                         st_sampling=st_sampling, max_new_tokens=DP_TP_FRAMES, generator=None)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t2
+    launches = decode_attention.launches
+    heads = [shards.cfg.num_attention_heads, shards.cfg.num_key_value_heads,
+             shards.cfg.code_predictor.num_attention_heads,
+             shards.cfg.code_predictor.num_key_value_heads]
+    del shards, rows
+
+    warm.join()
+    place = mesh_place(mesh)
+    cfg, state, params, x = vq_inputs(vq_seed)
+    step = make_sharded_vq_train_step(place.dp_group, cfg)
+    n = x.shape[0] // place.dp_size
+    with step_mode(x.device):
+        new, res = step(state, params, x[place.dp_rank * n:(place.dp_rank + 1) * n],
+                        torch.Generator(device="cuda").manual_seed(vq_seed))
+    torch.save({"state": [t.cpu() for t in new], "indices": res.indices.cpu()},
+               os.path.join(work, f"vq{rank}.pt"))
+    del state, params, x, new, res
+    torch.cuda.empty_cache()
+
+    t3 = time.perf_counter()
+    vq_s = t3 - t2 - decode_s
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = sft_12hz.train(sft_12hz.parse_args(sft_argv))
+    sft_s = time.perf_counter() - t3
+    torch.distributed.destroy_process_group()
+    return {"codes": out.codes.cpu().tolist(), "launches": launches, "backend": str(backend),
+            "heads": heads, "dp_rank": place.dp_rank, "tp_rank": place.tp_rank,
+            "wait_s": t1 - t0, "setup_s": t_load - t1, "wait_timed_s": t2 - t_load,
+            "decode_s": decode_s, "vq_s": vq_s, "sft_rc": rc,
+            "sft_lines": printed.getvalue().splitlines(), "sft_s": sft_s,
+            "end": time.time()}
+
+
+def vq_inputs(seed: int, device: str = "cuda"):
+    """The EMA VQ at the Whisper-VQ widths, uniform init from ``seed``, no
+    dead-code expiry (a dp step replaces dead codes from rank 0's rows, the
+    full batch from all of them): (cfg, state, projection params, input of
+    VQ_ROWS rows as 2 x VQ_ROWS / 2)."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.training.vq import VQTrainConfig, init_vq_params, init_vq_state
+
+    cfg = VQTrainConfig(dim=VQ_DIM, codebook_size=VQ_CODES, codebook_dim=VQ_CODE_DIM,
+                        kmeans_init=False, threshold_ema_dead_code=0.0)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = init_vq_state(cfg, gen, device=device)
+    params = init_vq_params(cfg, gen, device=device)
+    x = np.random.default_rng(seed).standard_normal((2, VQ_ROWS // 2, VQ_DIM)).astype(np.float32)
+    return cfg, state, params, torch.from_numpy(x).to(device)
+
+
+def check_pipeline(model_dir: str, smi: str) -> int:
+    """Phase 16 (a): ``TwoStagePipeline`` with both stages on cuda:0 (two
+    streams), bf16 talker and codec, B = 1, greedy, EOS banned: its codes
+    against ``generate_codes`` at the pipeline's prompt bucket (16) bit for
+    bit, each chunk against its window's ``codec_decode`` alone on the
+    default stream bit for bit, the vocoder block's launches, the wall
+    beside the two stages' device times, the whole waveform against
+    ``decode_codes``. Returns the vocoder block's launches."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.generate import GenerationParams, batch_prompts, generate_codes
+    from qwen_tts_tpu_torch.models import codec as codec_mod
+    from qwen_tts_tpu_torch.ops.cuda.vocoder_block import vocoder_block
+    from qwen_tts_tpu_torch.parallel.pipeline import TwoStagePipeline
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    model = Qwen3TTSModel.from_pretrained(model_dir, codec_dtype=torch.bfloat16,
+                                          load_tokenizer=False)
+    model.tokenizer = ChatTemplateTokenizer()
+    prompt = card_prompt(model, TEXTS[0], "aiden")
+    params = GenerationParams(max_new_tokens=PARALLEL_FRAMES,
+                              min_new_tokens=PARALLEL_FRAMES + 1, do_sample=False,
+                              subtalker_do_sample=False, repetition_penalty=1.0)
+    pp = TwoStagePipeline(model, "cuda:0", "cuda:0", segment_frames=PARALLEL_SEGMENT)
+    pp.synthesize(prompt, params)  # warm-up: the frame's capture
+    torch.cuda.synchronize()
+    vocoder_block.launches = 0
+    t0 = time.perf_counter()
+    chunks = list(pp.stream(prompt, params, left_context_frames=PARALLEL_CONTEXT))
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = vocoder_block.launches
+    codes = pp.codes
+    up = model.cfg.codec.decode_upsample_rate
+    dec_cfg = model.cfg.codec.decoder
+    nq = dec_cfg.num_quantizers
+
+    embeds, mask, trailing, _ = batch_prompts([prompt], bucket=16)
+    dtype = model.talker_params["norm"].dtype
+    ref = generate_codes(model.talker_params, model.subtalker_params, model.cfg.talker,
+                         embeds.to(dtype), mask, trailing.to(dtype),
+                         sampling=params.talker_sampling(),
+                         st_sampling=params.subtalker_sampling(),
+                         max_new_tokens=PARALLEL_FRAMES, generator=None)
+    ref_codes = ref.codes[0, : int(ref.num_gen[0]), :nq].cpu().numpy()
+    codes_equal = codes.shape == ref_codes.shape and bool((codes == ref_codes).all())
+
+    sizes = [c.shape[0] // up for c in chunks]
+    chunk_equal, emitted = [], 0
+    for c, n in zip(chunks, sizes):
+        ctx = min(PARALLEL_CONTEXT, emitted)
+        window = np.zeros((1, PARALLEL_CONTEXT + PARALLEL_SEGMENT, nq), np.int64)
+        window[0, : ctx + n] = codes[emitted - ctx: emitted + n]
+        alone = codec_mod.codec_decode(pp.codec_params, dec_cfg,
+                                       torch.as_tensor(window, device="cuda"))
+        alone = alone[0, ctx * up:(ctx + n) * up].float().cpu().numpy()
+        chunk_equal.append(bool(np.array_equal(alone, c)))
+        emitted += n
+    whole = np.concatenate(chunks)
+    want = model.decode_codes([codes])[0]
+    rel = float(np.linalg.norm(whole - want) / max(np.linalg.norm(want), 1e-30))
+    ms = {k: sum(v) for k, v in pp.stage_ms.items()}
+    serial = ms["prefill"] + ms["talker"] + ms["codec"]
+    log(f"parallel pipeline: B=1, {len(chunks)} chunks of {sizes} frames ({whole.shape[0]} "
+        f"samples), segments of {PARALLEL_SEGMENT}, left context {PARALLEL_CONTEXT}; codes "
+        f"{codes.shape} {'equal' if codes_equal else 'differ from'} generate_codes at prompt "
+        f"bucket 16 {ref_codes.shape}; chunks bit-equal to their windows' codec_decode alone "
+        f"{chunk_equal}; vocoder_block launches {launches} (predicted {2 * len(chunks)}: 2 a "
+        f"window); wall {wall_ms:.2f} ms against the stages' device time (events): prefill "
+        f"{ms['prefill']:.2f} ms, talker {ms['talker']:.2f} ms "
+        f"({[round(v, 2) for v in pp.stage_ms['talker']]}), codec {ms['codec']:.2f} ms "
+        f"({[round(v, 2) for v in pp.stage_ms['codec']]}); in series {serial:.2f} ms, the codec "
+        f"hidden behind the talker {(serial - wall_ms) / max(ms['codec'], 1e-9):.3f} of its time "
+        f"(1 = all of it; the wall also holds host time); whole waveform against decode_codes "
+        f"of all the codes: relative L2 {rel:.3g} | {smi}")
+    if not codes_equal:
+        fail("parallel pipeline: codes differ from one device's")
+    if not all(chunk_equal):
+        fail("parallel pipeline: a chunk differs from its window's codec_decode alone")
+    if launches != 2 * len(chunks) or sum(sizes) != PARALLEL_FRAMES - 1:
+        fail(f"parallel pipeline: {launches} vocoder launches for {len(chunks)} windows, "
+             f"{sum(sizes)} frames emitted of {PARALLEL_FRAMES} requested")
+    if not np.isfinite(whole).all():
+        fail("parallel pipeline: the waveform is not finite")
+    del model, pp
+    return launches
+
+
+def start_nccl(model_dir: str, marks: str):
+    """Phase 16 (b)'s child, started: (processes, directory, start time)."""
+    work = tempfile.mkdtemp(prefix="qtts_nccl_")
+    procs = start_children("child_nccl", 1, work, model_dir=model_dir, marks=marks)
+    return procs, work, time.perf_counter()
+
+
+def wait_for_marks(procs, marks: str, names, timeout: float = CHILD_TIMEOUT) -> bool:
+    """Wait until ``procs`` leave the marks ``names``; False as soon as one
+    of them exits first (waiting for its result then says how)."""
+    t0 = time.perf_counter()
+    while not all(os.path.exists(os.path.join(marks, n)) for n in names):
+        if any(p.poll() is not None for p in procs):
+            return False
+        if time.perf_counter() - t0 > timeout:
+            fail(f"parallel: no marks {names} after {timeout} s")
+        time.sleep(0.05)
+    return True
+
+
+def stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def check_nccl_one_rank(model_dir: str, child, smi: str) -> None:
+    """Phase 16 (b): the child of ``start_nccl`` (a process group lives as
+    long as its process)."""
+    import json as _json
+
+    from qwen_tts_tpu_torch.config import TTSConfig
+
+    procs, work, t0 = child
+    try:
+        (res,) = wait_children(procs, work, "parallel NCCL")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = TTSConfig.from_dict(_json.load(f)).talker
+    per_frame = frame_collectives(cfg)
+    # The group's first run: the prefill's all-reduces (2 a talker layer,
+    # eager), then the frame's warm-up run and its capture.
+    captured = (res["captured_calls"] - 2 * cfg.num_hidden_layers) / 2
+    summed, averaged = res["summed"], res["averaged"]
+    nccl = {k[:60]: n for k, n in summed.items() if "nccl" in k.lower()}
+    added = sum(averaged.values()) - sum(summed.values())
+    new = {}
+    for k in sorted(set(summed) | set(averaged)):
+        if averaged.get(k, 0) != summed.get(k, 0):
+            new[k[:90]] = new.get(k[:90], 0) + averaged.get(k, 0) - summed.get(k, 0)
+    ms = {k: statistics.median(v) for k, v in res["ms"].items()}
+    log(f"parallel NCCL, one rank ({res['backend']}), tp 1, bf16, B=4, {NCCL_FRAMES} greedy "
+        f"frames through the captured frames: codes with the group "
+        f"{'equal' if res['equal'] else 'differ from'} the run with none (shape "
+        f"{res['codes_shape']}), a second run equal {res['repeat_equal']}; all-reduces a frame "
+        f"from the code {per_frame} (2 x ({cfg.num_hidden_layers} talker layers + "
+        f"{cfg.num_code_groups} x {cfg.code_predictor.num_hidden_layers} sub-talker layers) + "
+        f"{cfg.num_code_groups - 1} head gathers), issued while the frame was captured "
+        f"{captured:g}; a profiled replayed frame: NCCL kernels with the path's sums {nccl} "
+        f"(predicted {NCCL_ONE_RANK_KERNELS}: NCCL runs a one-rank in-place sum as no kernel), "
+        f"the frame captured again with averages (the same bits: codes equal "
+        f"{res['probe_equal']}) ran {added} device events more (predicted {per_frame}, one a "
+        f"collective), by name {new} (profiles taken again for lost events: "
+        f"{res['retaken'] or 'none'}); replayed ms a frame (events, medians of 3) with the group "
+        f"{ms['group']:.3f} ({res['ms']['group']}), without {ms['no group']:.3f} "
+        f"({res['ms']['no group']}): the collectives cost {ms['group'] - ms['no group']:.3f} ms "
+        f"a frame; child {time.perf_counter() - t0:.1f} s (after its imports: "
+        f"{res['seconds']}) | {smi}")
+    if not (res["equal"] and res["repeat_equal"] and res["probe_equal"]):
+        fail("parallel NCCL: the codes with a one-rank group differ from the run with none")
+    if captured != per_frame:
+        fail(f"parallel NCCL: the captured frame issued {captured} all-reduces, the code "
+             f"{per_frame}")
+    if sum(nccl.values()) != NCCL_ONE_RANK_KERNELS:
+        fail(f"parallel NCCL: {nccl} NCCL kernels in a frame of sums, "
+             f"{NCCL_ONE_RANK_KERNELS} predicted for one rank")
+    if added != per_frame:
+        fail(f"parallel NCCL: the frame of averages ran {added} device events more than the "
+             f"frame of sums, {per_frame} collectives captured in it")
+
+
+def _batch_margin(model, inputs, frames, row, frame, group):
+    """The unsharded run's top-two margin and largest |logit| of ``row`` at
+    (frame, group), from an eager run that records every sampling call."""
+    import torch
+
+    from qwen_tts_tpu_torch import generate as gen_mod
+    from qwen_tts_tpu_torch.models import subtalker as st_mod
+
+    calls = []
+    originals = (gen_mod.sample_token, st_mod.sample_token)
+
+    def recording(logits, cfg, generator, race=None, _orig=originals[0]):
+        calls.append(logits[row].float().cpu())
+        return _orig(logits, cfg, generator, race)
+
+    gen_mod.sample_token = st_mod.sample_token = recording
+    sampling, st_sampling = _greedy_banned(frames)
+    try:
+        with eager_decode():
+            gen_mod.generate_codes(model.talker_params, model.subtalker_params,
+                                   model.cfg.talker, *inputs, sampling=sampling,
+                                   st_sampling=st_sampling, max_new_tokens=frames,
+                                   generator=None)
+    finally:
+        gen_mod.sample_token, st_mod.sample_token = originals
+    lg = calls[frame * model.cfg.talker.num_code_groups + group]
+    top2 = torch.topk(lg, 2).values
+    return (top2[0] - top2[1]).item(), lg[lg > -1e8].abs().max().item()
+
+
+DP_TP_VQ_SEED = 23
+
+
+def sft_inputs(base_dir: str) -> dict:
+    """Phase 16 (d)'s inputs, in a directory of their own: the Base
+    checkpoint with its talker cut to TRAIN_CUT_LAYERS layers, TRAIN_BATCH
+    rows of training data, the SFT CLI's arguments for one step of them at
+    ``--dp 2 --tp 2``."""
+    work = tempfile.mkdtemp(prefix="qtts_psft_", dir=os.path.dirname(os.path.abspath(base_dir)))
+    cut = os.path.join(work, "cut")
+    cut_checkpoint(base_dir, cut, TRAIN_CUT_LAYERS)
+    with open(os.path.join(cut, "config.json")) as f:
+        config = json.load(f)
+    data = os.path.join(work, "train.jsonl")
+    training_rows(data, config, TRAIN_CPU_FRAMES, seed=17, n=TRAIN_BATCH)
+    argv = ["--model-path", cut, "--data", data, "--output-model-path",
+            os.path.join(work, "mesh"), "--speaker-name", TRAIN_SPEAKER, "--num-epochs", "1",
+            "--batch-size", str(TRAIN_BATCH), "--dp", "2", "--tp", "2"]
+    return {"work": work, "cut": cut, "data": data, "argv": argv}
+
+
+def start_ranks(model_dir: str, sft: dict, marks: str):
+    """Phase 16 (c) and (d)'s four ranks, started: (processes, their
+    directory, the start time by ``time.time``)."""
+    work = tempfile.mkdtemp(prefix="qtts_ranks_")
+    procs = start_children("child_ranks", 4, work, model_dir=model_dir, vq_seed=DP_TP_VQ_SEED,
+                           marks=marks, sft_argv=sft["argv"])
+    return procs, work, time.time()
+
+
+def dp_tp_reference(model_dir: str) -> dict:
+    """Phase 16 (c)'s side on this process: the unsharded f32 run and the
+    full-batch VQ step."""
+    import torch
+
+    from qwen_tts_tpu_torch.generate import generate_codes
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+    from qwen_tts_tpu_torch.training.sft import step_mode
+    from qwen_tts_tpu_torch.training.vq import vq_train_step
+
+    model = Qwen3TTSModel.from_pretrained(model_dir, talker_dtype=torch.float32,
+                                          load_tokenizer=False)
+    inputs = _parallel_prompts(model, TEXTS, ["aiden", "serena", "aiden", "serena"])
+    sampling, st_sampling = _greedy_banned(DP_TP_FRAMES)
+    ref = generate_codes(model.talker_params, model.subtalker_params, model.cfg.talker,
+                         *inputs, sampling=sampling, st_sampling=st_sampling,
+                         max_new_tokens=DP_TP_FRAMES, generator=None)
+    cfg, state, params, x = vq_inputs(DP_TP_VQ_SEED)
+    with step_mode(x.device):
+        vq_state, vq = vq_train_step(
+            state, params, x, torch.Generator(device="cuda").manual_seed(DP_TP_VQ_SEED), cfg=cfg)
+    return {"model": model, "inputs": inputs, "codes": ref.codes.cpu().numpy(),
+            "vq_state": vq_state, "vq_indices": vq.indices.cpu()}
+
+
+def check_dp_tp(ref: dict, res: list, work: str, wall: float, smi: str) -> int:
+    """Phase 16 (c): the ranks' codes against the unsharded f32 run, their
+    decode-attention launches, the dp-2 VQ step against the full batch.
+    Returns the decode attention's launches on a rank."""
+    import numpy as np
+    import torch
+
+    model = ref["model"]
+    tk = model.cfg.talker
+    per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
+    by_dp = {}
+    for r in res:
+        by_dp.setdefault(r["dp_rank"], []).append(np.asarray(r["codes"]))
+    for dp_rank, rows in by_dp.items():
+        if not all(np.array_equal(rows[0], other) for other in rows[1:]):
+            fail(f"parallel dp x tp: the tp ranks of dp shard {dp_rank} decoded different codes")
+    got, ref_codes = np.concatenate([by_dp[0][0], by_dp[1][0]]), ref["codes"]
+    ties = []
+    if not np.array_equal(got, ref_codes):
+        for row in range(got.shape[0]):
+            diff = np.argwhere(got[row] != ref_codes[row])
+            if len(diff) == 0:
+                continue
+            f, g = (int(v) for v in diff[0])
+            margin, scale = _batch_margin(model, ref["inputs"], DP_TP_FRAMES, row, f, g)
+            ties.append((row, f, g, round(margin, 6), round(scale, 3)))
+            if not margin <= SERVING_NEAR_TIE * scale:
+                fail(f"parallel dp x tp: row {row} first differs from the unsharded run at "
+                     f"frame {f}, group {g}, not a near tie (margin {margin:.4g}, limit "
+                     f"{SERVING_NEAR_TIE} x {scale:.4g})")
+    launches = [r["launches"] for r in res]
+    heads = res[0]["heads"]
+    log(f"parallel dp 2 x tp 2 over {res[0]['backend']}, 4 ranks sharing the card, f32, B=4, "
+        f"{DP_TP_FRAMES} greedy frames (eager: gloo's collectives cannot be captured): rank "
+        f"heads talker H{heads[0]}/KV{heads[1]}, sub-talker H{heads[2]}/KV{heads[3]}; codes "
+        f"equal on every rank of a dp shard; against the unsharded f32 card run "
+        f"{'equal' if not ties else f'first apart at near ties (row, frame, group, margin, max|logit|) {ties}'}; "
+        f"decode-attention launches per rank {launches} (predicted {DP_TP_FRAMES * per_frame} = "
+        f"{DP_TP_FRAMES} frames x {per_frame}); a rank's seconds after its imports: to the "
+        f"mark 'go' {[round(r['wait_s'], 1) for r in res]}, load and shard "
+        f"{[round(r['setup_s'], 1) for r in res]}, to the mark 'timed' "
+        f"{[round(r['wait_timed_s'], 1) for r in res]}, decode "
+        f"{[round(r['decode_s'], 2) for r in res]}, VQ step {[round(r['vq_s'], 1) for r in res]}, "
+        f"(d) {[round(r['sft_s'], 1) for r in res]}; the ranks' wall (start to the last "
+        f"one's result) {wall:.1f} s | {smi}")
+    if launches != [DP_TP_FRAMES * per_frame] * 4:
+        fail("parallel dp x tp: decode attention did not launch as predicted on every rank")
+
+    # The dp-2 VQ step: dp shard r's rows are rows [r * n, (r + 1) * n).
+    vq = [torch.load(os.path.join(work, f"vq{r}.pt")) for r in range(4)]
+    idx = torch.cat([vq[0]["indices"], vq[2]["indices"]], dim=2)
+    want = ref["vq_indices"]
+    agree = float((idx == want).float().mean())
+    worst = 0.0
+    for name, a in zip(("inited", "cluster_size", "embed", "embed_avg"), vq[0]["state"]):
+        b = getattr(ref["vq_state"], name).cpu()
+        if name == "inited":
+            continue
+        worst = max(worst, float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)))
+    same_ranks = all(torch.equal(a, b) for r in (1, 2, 3)
+                     for a, b in zip(vq[0]["state"], vq[r]["state"]))
+    log(f"parallel VQ dp 2 (the dp group of the dp x tp mesh) at the Whisper-VQ widths "
+        f"({VQ_ROWS} rows of {VQ_DIM}, {VQ_CODES} x {VQ_CODE_DIM} codebook): codes agree with "
+        f"the full-batch step at {agree:.6f}; buffers' largest difference {worst:.3g} of their "
+        f"largest value (tol {PARALLEL_VQ_BUFFER_REL}); every rank's buffers the same "
+        f"{same_ranks} | {smi}")
+    if agree != 1.0 or not worst <= PARALLEL_VQ_BUFFER_REL or not same_ranks:
+        fail("parallel VQ: the dp step differs from the full-batch step")
+    return launches[0]
+
+
+def cut_checkpoint(base_dir: str, cut_dir: str, layers: int) -> None:
+    """``base_dir`` with its talker cut to ``layers`` layers: links to its
+    files, the config patched (the loader reads the layers the config
+    names)."""
+    os.makedirs(cut_dir)
+    for name in os.listdir(base_dir):
+        if name != "config.json":
+            os.symlink(os.path.realpath(os.path.join(base_dir, name)),
+                       os.path.join(cut_dir, name))
+    with open(os.path.join(base_dir, "config.json")) as f:
+        config = json.load(f)
+    config["talker_config"]["num_hidden_layers"] = layers
+    with open(os.path.join(cut_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+
+
+def parallel_sft_reference(run: dict) -> None:
+    """Phase 16 (d)'s one-device side, into ``run``: the CLI's first step
+    on one device (load, collate, step; its lr and decay), the names,
+    shapes and dtypes of its train state, its params after the step."""
+    import torch
+
+    from qwen_tts_tpu_torch.io.loader import load_checkpoint
+    from qwen_tts_tpu_torch.training.checkpoint import flatten
+    from qwen_tts_tpu_torch.training.data import collate, examples_from_jsonl
+    from qwen_tts_tpu_torch.training.sft import make_optimizer, make_train_step
+
+    t0 = time.perf_counter()
+    cfg, talker, sub, _, _ = load_checkpoint(run["cut"], talker_dtype=torch.float32,
+                                             device="cuda")
+    params = {"talker": talker, "subtalker": sub}
+    optimizer = make_optimizer(5e-5, weight_decay=0.01)
+    opt_state = optimizer.init(params)
+    batch = collate(examples_from_jsonl(run["data"], None, None), cfg, talker, sub)
+    params, opt_state, loss, _ = make_train_step(cfg.talker, optimizer)(params, opt_state,
+                                                                         batch)
+    run["ref"] = float(loss)
+    run["want"] = {name: {k: (tuple(v.shape), v.dtype) for k, v in flatten(tree).items()}
+                   for name, tree in (("params", params), ("opt_state", opt_state))}
+    run["mine"] = {k: v.cpu() for k, v in flatten(params).items()}
+    run["solo_s"] = time.perf_counter() - t0
+
+
+def check_parallel_sft(run: dict, res: list, smi: str) -> None:
+    """Phase 16 (d): the ranks' SFT run against ``parallel_sft_reference``:
+    the step-0 loss, the snapshot's names, shapes and dtypes, its params."""
+    from qwen_tts_tpu_torch.io.safetensors import SafeTensorsFile
+
+    ref, want, mine = run["ref"], run["want"], run["mine"]
+    lines = res[0]["sft_lines"]
+    if any(r["sft_rc"] for r in res):
+        fail(f"parallel SFT: the --dp 2 --tp 2 run returned {[r['sft_rc'] for r in res]}:\n"
+             + "\n".join(lines[-20:]))
+    mesh_line = next((l for l in lines if l.startswith("mesh:")), None)
+    step0 = next((l for l in lines if "step 0 |" in l), None)
+    if mesh_line is None or "mesh: dp=2 tp=2 over 4 devices" not in mesh_line or step0 is None:
+        fail(f"parallel SFT: no mesh line or no step-0 line in rank 0's lines {lines}")
+    got = float(step0.split("loss")[1].split("(")[0])
+    diffs = []
+    for name in ("params", "opt_state"):
+        st = SafeTensorsFile(os.path.join(run["work"], "mesh", "train_state", "state.step1",
+                                          name + ".safetensors"))
+        try:
+            have = {k: (tuple(st.get(k).shape), st.get(k).dtype) for k in st.keys()}
+            if have != want[name]:
+                fail(f"parallel SFT: the snapshot's {name} differ from one device's in "
+                     f"names, shapes or dtypes: "
+                     f"{sorted(set(have.items()) ^ set(want[name].items()))[:4]}")
+            if name == "params":
+                for k in st.keys():
+                    a, b = st.get(k).float(), mine[k].float()
+                    diffs.append((float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)),
+                                  k))
+        finally:
+            st.close()
+    worst = max(diffs)
+    log(f"parallel SFT: {mesh_line!r}; talker cut to {TRAIN_CUT_LAYERS} layers, widths full, "
+        f"{TRAIN_BATCH} rows of {TRAIN_CPU_FRAMES} frames, one step, on the ranks of (c) as "
+        f"under a launcher: step-0 loss {got:.6f} against one device's {ref:.6f} (|diff| "
+        f"{abs(got - ref):.3g}, tol {PARALLEL_LOSS_RTOL} x max(1, |loss|)); the snapshot's "
+        f"tensors have one device's names, shapes and dtypes, params after the step within "
+        f"{worst[0]:.3g} of their largest value (worst {worst[1]}); one device (load, collate, "
+        f"step) {run['solo_s']:.1f} s, dp 2 x tp 2 (load, collate, step, export, snapshot) "
+        f"{[round(r['sft_s'], 1) for r in res]} s; rank 0's lines {[l[:32] for l in lines]} "
+        f"| {smi}")
+    if not abs(got - ref) <= PARALLEL_LOSS_RTOL * max(1.0, abs(ref)):
+        fail("parallel SFT: the step-0 loss differs from one device's")
+
+
+def phase_parallel(model_dir: str, base_dir: str, smi: str) -> dict:
+    """Phase 16: parallelism on the one card. (a) the two-stage pipeline on
+    two streams; (b) a one-rank NCCL group through the captured frames; (c)
+    dp 2 x tp 2 over gloo, four ranks sharing the card, with a dp-2 VQ step;
+    (d) the SFT CLI's run at dp 2 x tp 2 on the same four ranks; decode
+    attention held at the tp shard's shapes. Returns the vocoder block's
+    launches in (a) and the decode attention's per rank in (c)."""
+    import torch
+
+    from qwen_tts_tpu_torch import graphs
+
+    # Every child starts now, so that their imports (CPU work) overlap (a).
+    # The card's timed work runs alone, each step started by a mark: (a)
+    # here; then ("go") the ranks load and (b)'s child loads and captures;
+    # then ("quiet", once the four ranks are "loaded<r>") (b)'s child times
+    # its frames; then ("timed") the ranks decode and train while this
+    # process runs its side of (c) and (d) and (b)'s child profiles.
+    sft = sft_inputs(base_dir)
+    marks = tempfile.mkdtemp(prefix="qtts_marks_")
+    nccl, ranks = None, None
+    try:
+        nccl = start_nccl(model_dir, marks)
+        ranks = start_ranks(model_dir, sft, marks)
+        procs, work, t0 = ranks
+        vocoder = timed("parallel pipeline", check_pipeline, model_dir, smi)
+        graphs.clear()
+        torch.cuda.empty_cache()
+        set_mark(marks, "go")
+        loaded = timed("parallel wait for the ranks' loads", wait_for_marks, procs, marks,
+                       [f"loaded{r}" for r in range(len(procs))])
+        set_mark(marks, "quiet")
+        if not (loaded and timed("parallel wait for (b)'s timings", wait_for_marks, nccl[0],
+                                 marks, ["timed"])):
+            # A child ended early: waiting for its result says how.
+            check_nccl_one_rank(model_dir, nccl, smi)
+            wait_children(procs, work, "parallel ranks")
+        timed("parallel SFT one device", parallel_sft_reference, sft)
+        ref = timed("parallel dp x tp unsharded", dp_tp_reference, model_dir)
+        try:
+            res = timed("parallel ranks", wait_children, procs, work, "parallel ranks")
+            dp_tp = check_dp_tp(ref, res, work, max(r["end"] for r in res) - t0, smi)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        check_parallel_sft(sft, res, smi)
+        timed("parallel NCCL", check_nccl_one_rank, model_dir, nccl, smi)
+    finally:
+        for child in (nccl, ranks):
+            if child is not None:
+                stop(child[0])
+        shutil.rmtree(sft["work"], ignore_errors=True)
+        shutil.rmtree(marks, ignore_errors=True)
+    del ref
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    err = max(hold_attention_at(gen, (8, 1, 64, 32 + DP_TP_FRAMES), False, "talker tp shard"),
+              hold_attention_at(gen, (8, 4, 128, 16), False, "subtalker tp shard",
+                                micro_rows(16)))
+    return {"vocoder_block": vocoder, "decode_attention": dp_tp, "attention_err": err}
+
+
 def timed(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``, its seconds logged under ``name``."""
     t0 = time.perf_counter()
@@ -5875,6 +6773,9 @@ def main() -> int:
         graphs.clear()
         torch.cuda.empty_cache()
         timed("training", phase_training, base_dir, smi)
+        graphs.clear()
+        torch.cuda.empty_cache()
+        parallel = timed("parallel", phase_parallel, model_dir, base_dir, smi)
     finally:
         shutil.rmtree(model_dir, ignore_errors=True)
     # Each kernel's launches come from the run of the path that uses it.
@@ -5886,6 +6787,7 @@ def main() -> int:
     for rec in records[:2]:
         rec["max_abs_err"] = max(rec["max_abs_err"], clone["attention_err"][rec["name"]],
                                  serving_engines["attention_err"][rec["name"]])
+    records[0]["max_abs_err"] = max(records[0]["max_abs_err"], parallel["attention_err"])
     log(f"time: all phases {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(f"card: {smi}")

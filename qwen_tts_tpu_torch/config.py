@@ -19,7 +19,37 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Mapping, Optional, Tuple
+from typing import Any, Mapping, Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A rank's place in a (dp, tp) mesh (``parallel/mesh.py``), carried by
+    the rank's copy of a talker or code-predictor config: the trunk reaches
+    its tensor-parallel group through it (``TrunkDims.group``), and the
+    sampler its rows of the global batch. A config that carries one counts
+    the rank's heads and intermediate width, not the model's.
+
+    ``tp_group`` is None where the part's weights are whole on every rank
+    (int8 or fused trunks): it then runs with no collective. ``kv_slice``
+    (first, end) names the KV heads the rank caches when the KV heads do not
+    divide over tp: ``wk`` / ``wv`` are whole on every rank and the rank
+    keeps the heads its q heads map to. ``dp_group`` joins the ranks that
+    hold the same shards and different rows."""
+
+    tp_group: Any = None
+    tp_rank: int = 0
+    tp_size: int = 1
+    dp_group: Any = None
+    dp_rank: int = 0
+    dp_size: int = 1
+    kv_slice: Optional[Tuple[int, int]] = None
+
+
+def placement_of(cfg) -> Optional[Placement]:
+    """``cfg``'s placement; None on one device (and for a config without
+    the field)."""
+    return getattr(cfg, "placement", None)
 
 
 def _freeze_map(m: Optional[Mapping[str, int]]) -> Tuple[Tuple[str, int], ...]:
@@ -45,6 +75,8 @@ class CodePredictorConfig:
     rms_norm_eps: float = 1e-6
     rope_theta: float = 10000.0
     num_code_groups: int = 32
+    # The rank's place in a mesh (``Placement``); None on one device.
+    placement: Optional[Placement] = None
 
     @classmethod
     def from_dict(cls, d: Mapping) -> "CodePredictorConfig":
@@ -103,6 +135,8 @@ class TalkerConfig:
     code_predictor: CodePredictorConfig = dataclasses.field(
         default_factory=CodePredictorConfig
     )
+    # The rank's place in a mesh (``Placement``); None on one device.
+    placement: Optional[Placement] = None
 
     @property
     def q_dim(self) -> int:

@@ -17,6 +17,14 @@ jitted ``while_loop``. The host reads whether any row is still active only
 every ``CHECK_EVERY`` frames; the frames run past the point where every row
 is done change nothing. On the CPU the same frames and checks run eagerly.
 The prefill stays eager.
+
+On a (dp, tp) mesh (``parallel/mesh.py``) the functions take a rank's
+shards and its config: the trunk reduces over the config's tp group, and a
+dp rank draws the global batch's noise from the same seeded generator and
+keeps its rows, so a sampled dp decode gives one device's codes; every tp
+rank draws the same tokens. A captured frame holds its NCCL collectives. A
+gloo group runs its collectives through the host, which a CUDA graph cannot
+capture: with one the frames run through ``_decode_eager`` on the card too.
 """
 
 from __future__ import annotations
@@ -30,7 +38,7 @@ import numpy as np
 import torch
 
 from qwen_tts_tpu_torch import graphs
-from qwen_tts_tpu_torch.config import TalkerConfig, TTSConfig
+from qwen_tts_tpu_torch.config import TalkerConfig, TTSConfig, placement_of
 from qwen_tts_tpu_torch.models import subtalker as st_mod
 from qwen_tts_tpu_torch.models import talker as talker_mod
 from qwen_tts_tpu_torch.ops.attention import KVCache
@@ -40,6 +48,8 @@ from qwen_tts_tpu_torch.ops.sampling import (
     apply_repetition_penalty,
     apply_suppress_mask,
     build_suppress_mask,
+    draw_rows,
+    exponential_race,
     sample_token,
 )
 from qwen_tts_tpu_torch.ops.sampling_vec import (
@@ -47,6 +57,7 @@ from qwen_tts_tpu_torch.ops.sampling_vec import (
     apply_repetition_penalty_vec,
     sample_token_vec,
 )
+from qwen_tts_tpu_torch.parallel import comm
 
 # The host reads whether any row is still active once every CHECK_EVERY
 # frames. Each read waits until the card has run every frame queued before
@@ -351,12 +362,18 @@ def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device,
     """Logits pipeline: suppress → min-new-tokens EOS ban → repetition
     penalty → sample. With ``vec_sampling`` every control is per row (a slot
     pool serves requests of different controls in one program) and
-    ``sampling`` is not read."""
+    ``sampling`` is not read. A dp rank (``talker_cfg``'s placement) draws
+    the global batch's race and keeps its rows."""
     vocab = talker_cfg.vocab_size
     eos_id = talker_cfg.codec_eos_token_id
     suppress = build_suppress_mask(vocab, eos_id, tail=talker_cfg.suppress_tail,
                                    device=device)
     is_eos = torch.arange(vocab, device=device) == eos_id
+
+    def race(logits, generator):
+        rows = draw_rows(talker_cfg, logits.shape[0])
+        return None if rows is None else exponential_race(logits.shape, generator,
+                                                           logits.device, rows)
 
     def process_and_sample(logits, presence, num_sampled, generator):
         logits = apply_suppress_mask(logits, suppress[None])
@@ -365,12 +382,13 @@ def _processor(talker_cfg: TalkerConfig, sampling: SamplingConfig, device,
             logits = logits.masked_fill(ban[:, None] & is_eos[None], NEG_INF)
             logits = apply_repetition_penalty_vec(logits, presence,
                                                   vec_sampling.repetition_penalty)
-            return sample_token_vec(logits, vec_sampling, generator)
+            return sample_token_vec(logits, vec_sampling, generator, race(logits, generator))
         if sampling.min_new_tokens > 0:
             ban = num_sampled < sampling.min_new_tokens  # [B]
             logits = logits.masked_fill(ban[:, None] & is_eos[None], NEG_INF)
         logits = apply_repetition_penalty(logits, presence, sampling.repetition_penalty)
-        return sample_token(logits, sampling, generator)
+        return sample_token(logits, sampling, generator,
+                            race(logits, generator) if sampling.do_sample else None)
 
     return process_and_sample
 
@@ -598,13 +616,21 @@ def frame_key(state: DecodeState, trailing: torch.Tensor, talker_cfg: TalkerConf
     """The key of the frame program that advances ``state``: what its
     capture bakes in (device, batch, widths and dtypes, cache length and
     type, trailing bucket, sampling configs or per-row sampling, the
-    sub-talker's gates)."""
+    sub-talker's gates, and through ``talker_cfg``'s placements the tp
+    groups whose collectives it holds)."""
     cache = state.k_cache
     return ("frame", state.token.device, tuple(state.hidden.shape), state.hidden.dtype,
             _cache_slots(cache), "int8" if isinstance(cache, dict) else cache.dtype,
             trailing_rows(trailing), trailing.dtype, sampling, st_sampling, talker_cfg,
             "vec" if vec_sampling is not None else None,
             "st_vec" if st_vec_sampling is not None else None, st_mod.st_env_token())
+
+
+def tp_groups(talker_cfg: TalkerConfig) -> tuple:
+    """The tp groups a frame's collectives run over: the talker's and the
+    sub-talker's (None where a part runs with none)."""
+    return tuple(getattr(placement_of(c), "tp_group", None)
+                 for c in (talker_cfg, talker_cfg.code_predictor))
 
 
 def _decode(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
@@ -618,8 +644,9 @@ def _decode(talker_params: dict, st_params: dict, talker_cfg: TalkerConfig,
     the CPU, the same frames run eagerly. The program's key marks per-row
     sampling, not its values: one capture serves every mix of controls; it
     holds the sub-talker's gates (``st_env_token``), which the frame reads as
-    it is captured."""
-    if not state.token.is_cuda:
+    it is captured. With a gloo tp group the frames run eagerly on the card
+    too (``comm.capturable``)."""
+    if not state.token.is_cuda or not comm.capturable(tp_groups(talker_cfg)):
         return _decode_eager(talker_params, st_params, talker_cfg, sampling, st_sampling,
                              state, trailing, step_limit, segment, vec_sampling, st_vec_sampling)
     key = frame_key(state, trailing, talker_cfg, sampling, st_sampling, vec_sampling,
@@ -695,6 +722,9 @@ class _FrameGraph:
                  state: DecodeState, trailing: torch.Tensor, step_limit: torch.Tensor,
                  rows: int, vec_sampling: Optional[VecSampling] = None,
                  st_vec_sampling: Optional[VecSampling] = None):
+        if not comm.capturable(tp_groups(talker_cfg)):
+            raise ValueError("a CUDA graph cannot capture a gloo group's collectives: "
+                             "run the frames through _decode_eager")
         b, d = state.hidden.shape
         device = state.token.device
         self.state = DecodeState(**{f: buffer_like(getattr(state, f)) for f in STATE_FIELDS})

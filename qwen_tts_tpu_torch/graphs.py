@@ -14,7 +14,12 @@ allocates while captured lives in one memory pool, which every graph alive
 at once shares (a pool whose graphs are all gone is released). Graphs replay on the current stream, one after another, so a graph's
 temporaries are dead between its replays and the pool is safe to share; an
 output made under capture is read right after its own replay, before any
-other graph replays.
+other graph replays. A graph made with ``private_pool=True`` keeps a pool of
+its own, which no other graph shares, and is captured on a stream other than
+the one the shared-pool graphs are captured on (cuBLAS keeps a workspace per
+stream, which a captured GEMM bakes in: two graphs captured on one stream
+share it): it may replay on another stream while the others replay (the
+two-stage pipeline's codec stage).
 
 Captured programs live in one registry, keyed by what their capture baked
 in: shapes, dtypes, sampling configs and the identity of the parameter
@@ -142,19 +147,36 @@ def _take_back(before: dict) -> dict:
     return taken
 
 
+def _private_stream() -> torch.cuda.Stream:
+    """A capture stream for a private-pool graph that is not the stream the
+    shared-pool graphs are captured on (``torch.cuda.graph``'s default).
+    PyTorch hands its streams out round robin from a small pool, so a new
+    stream may be that one: it is passed over."""
+    if torch.cuda.graph.default_capture_stream is None:
+        torch.cuda.graph.default_capture_stream = torch.cuda.Stream()
+    shared = torch.cuda.graph.default_capture_stream.cuda_stream
+    stream = torch.cuda.Stream()
+    while stream.cuda_stream == shared:
+        stream = torch.cuda.Stream()
+    return stream
+
+
 class Graph:
     """``fn`` captured as one CUDA graph on the current device. ``fn`` takes
     no arguments: it reads and writes buffers that exist before the capture.
     ``outputs`` is what the captured call returned; ``launches`` the kernel
     launches it captured (wrapper name -> count); ``capture_s`` the host
     seconds of warm-up and capture. ``generator``, if given, is the one
-    generator ``fn`` draws from."""
+    generator ``fn`` draws from; ``private_pool`` gives the graph a memory
+    pool that no other graph shares."""
 
-    def __init__(self, fn: Callable, generator: Optional[torch.Generator] = None):
+    def __init__(self, fn: Callable, generator: Optional[torch.Generator] = None,
+                 private_pool: bool = False):
         with device_lock:
-            self._capture(fn, generator)
+            self._capture(fn, generator, private_pool)
 
-    def _capture(self, fn: Callable, generator: Optional[torch.Generator]) -> None:
+    def _capture(self, fn: Callable, generator: Optional[torch.Generator],
+                 private_pool: bool) -> None:
         t0 = time.perf_counter()
         self.generator = generator
         self._fn = fn  # keeps what the graph reads alive
@@ -165,17 +187,20 @@ class Graph:
         torch.cuda.current_stream().wait_stream(side)
         # The pool of a graph alive now: a pool whose graphs are all gone is
         # released and must not be named again.
-        pool = next(iter(_live), None)
+        pool = None if private_pool else next(iter(_live), None)
+        self._stream = _private_stream() if private_pool else None
         before = _counts()
         self.graph = torch.cuda.CUDAGraph()
         if generator is not None:
             self.graph.register_generator_state(generator)
         try:
-            with torch.cuda.graph(self.graph, pool=None if pool is None else pool.graph.pool()):
+            with torch.cuda.graph(self.graph, pool=None if pool is None else pool.graph.pool(),
+                                  stream=self._stream):
                 self.outputs = fn()
         finally:
             self._captured = _take_back(before)
-        _live.add(self)
+        if not private_pool:
+            _live.add(self)
         torch.cuda.synchronize()
         self.capture_s = time.perf_counter() - t0
         self.launches = {fn.__name__: n for fn, (n, _) in self._captured.items()}

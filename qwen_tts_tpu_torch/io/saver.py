@@ -7,6 +7,8 @@ layers and group tables back to one tensor each. A finetuned checkpoint
 written here loads in either package and in any reference-compatible
 runtime. Tensors keep their dtype (f32 master weights stay f32, bf16 stays
 bf16) and are written by the port's own ``io/safetensors.py::save_file``.
+Under tp the export gathers the split leaves (every rank calls it) and
+global rank 0 writes the files a single device writes.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from qwen_tts_tpu_torch.io.safetensors import save_file
+from qwen_tts_tpu_torch.parallel.multihost import writes_files
 
 
 def _host(x: torch.Tensor) -> torch.Tensor:
@@ -81,13 +84,21 @@ def save_finetuned_checkpoint(
     speaker_name: str,
     speaker_embedding: Optional[np.ndarray] = None,
     speaker_slot: int = 3000,
+    sharding=None,
 ) -> None:
     """The reference SFT's export: the base checkpoint's directory copied,
     its config patched (``custom_voice``, the speaker's slot), the speaker
     embedding baked into ``codec_embedding[slot]``, one
     ``model.safetensors``. The base's top-level safetensors files are not
     copied: the export replaces them (the JAX package copies and then
-    deletes them; the directory ends the same)."""
+    deletes them; the directory ends the same). ``sharding``
+    (``ParamSharding``): the trees are a rank's shards; every rank calls
+    this and global rank 0 writes."""
+    if sharding is not None:
+        full = sharding.gather_tree({"talker": talker, "subtalker": subtalker})
+        talker, subtalker = full["talker"], full["subtalker"]
+    if not writes_files():
+        return
 
     def skip_weights(directory, names):
         if os.path.abspath(directory) != os.path.abspath(base_dir):

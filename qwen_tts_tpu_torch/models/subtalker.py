@@ -22,6 +22,14 @@ launch per micro-step on the card, its plain version on the CPU. The routes
 below run the int8 trunk layer by layer instead, untiled from the pack the
 first time one runs (``SubtalkerPack.trunk``).
 
+Under tensor parallelism (``parallel/mesh.py``) the config counts the
+rank's heads and its placement carries the tp group: the trunk reduces over
+it, the float LM heads hold the rank's vocab slice and their logits come
+through ``gather_last_dim``. The serving mode's pack and int8 heads stay
+whole on every rank, so the ``subtalker_step`` route never sees a shard. A
+dp rank draws the global batch's noise and keeps its rows
+(``frame_noise``).
+
 Environment gates, read when a frame is built (on the card: when it is
 captured; ``st_env_token`` is part of every captured program's key, so a
 flipped gate captures anew and flipping it back replays the old program):
@@ -51,6 +59,7 @@ import torch
 from qwen_tts_tpu_torch.config import CodePredictorConfig
 from qwen_tts_tpu_torch.models.trunk import (
     TrunkDims,
+    dims_of,
     init_trunk_params,
     quantize_int8,
     trunk_decode_step,
@@ -61,8 +70,14 @@ from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import subtalker_step
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
-from qwen_tts_tpu_torch.ops.sampling import SamplingConfig, exponential_race, sample_token
+from qwen_tts_tpu_torch.ops.sampling import (
+    SamplingConfig,
+    draw_rows,
+    exponential_race,
+    sample_token,
+)
 from qwen_tts_tpu_torch.ops.sampling_vec import VecSampling, sample_token_vec
+from qwen_tts_tpu_torch.parallel.comm import copy_to_tp, gather_last_dim
 from qwen_tts_tpu_torch.utils import normal_init
 
 # The sub-talker's environment gates (module docstring), as the JAX package
@@ -94,16 +109,8 @@ def _layer_trunk(params: dict) -> dict:
 
 
 def subtalker_dims(cfg: CodePredictorConfig) -> TrunkDims:
-    return TrunkDims(
-        num_layers=cfg.num_hidden_layers,
-        hidden=cfg.hidden_size,
-        heads=cfg.num_attention_heads,
-        kv_heads=cfg.num_key_value_heads,
-        head_dim=cfg.head_dim,
-        intermediate=cfg.intermediate_size,
-        eps=cfg.rms_norm_eps,
-        qk_norm=True,
-    )
+    """The trunk's dims; on a tp rank the rank's, with its tp group."""
+    return dims_of(cfg)
 
 
 def init_subtalker_params(generator: torch.Generator, cfg: CodePredictorConfig,
@@ -156,12 +163,16 @@ def _embed_table(params: dict, table: int, code: torch.Tensor, dtype) -> torch.T
     return params["embeds"][table][code]
 
 
-def _lm_head_logits(params: dict, hidden: torch.Tensor, head: int) -> torch.Tensor:
-    """f32 logits of LM head ``head`` (int8-aware: the int8 GEMM)."""
+def _lm_head_logits(params: dict, hidden: torch.Tensor, head: int,
+                    group=None) -> torch.Tensor:
+    """f32 logits of LM head ``head`` (int8-aware: the int8 GEMM). Under tp
+    (``group``, the trunk's) float heads hold the rank's vocab slice and the
+    logits come through ``gather_last_dim``; int8 heads are whole."""
     if "lm_heads_i8" in params:
         return int8_matmul(hidden, params["lm_heads_i8"][head], params["lm_heads_s"][head],
                            f32_out=True)
-    return (hidden @ params["lm_heads"][head]).float()
+    return gather_last_dim((copy_to_tp(hidden, group) @ params["lm_heads"][head]).float(),
+                           group)
 
 
 def alloc_subtalker_cache(
@@ -188,10 +199,12 @@ def frame_noise(cfg: CodePredictorConfig, batch: int, sampling: Optional[Samplin
     """The frame's exponential races [G-1, B, V] for the draws of positions
     1..G-1 (position p takes slice p-1), drawn at once before position 1 so
     that the sequential and the Jacobi micro-decodes draw the same noise;
-    None when no position samples (``sample_token_vec`` always draws)."""
+    None when no position samples (``sample_token_vec`` always draws). A dp
+    rank draws the global batch's races and keeps its rows (``draw_rows``)."""
     if vec_sampling is None and (sampling is None or not sampling.do_sample):
         return None
-    return exponential_race((cfg.num_code_groups - 1, batch, cfg.vocab_size), generator, device)
+    return exponential_race((cfg.num_code_groups - 1, batch, cfg.vocab_size), generator, device,
+                            draw_rows(cfg, batch))
 
 
 def _draw(logits: torch.Tensor, sampling: Optional[SamplingConfig],
@@ -277,7 +290,7 @@ def subtalker_generate(
         if pos == 0:
             continue  # position 0 emits no token
         hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
-        logits = _lm_head_logits(params, hidden, pos - 1)
+        logits = _lm_head_logits(params, hidden, pos - 1, dims.group)
         codes.append(_draw(logits, sampling, vec_sampling,
                            None if noise is None else noise[pos - 1]))
     return torch.stack(codes, dim=1)
@@ -341,7 +354,8 @@ def subtalker_generate_jacobi(
         x = _project_input(params, torch.cat([head, rest.transpose(0, 1).to(dtype)], dim=1))
         hidden, _, _ = trunk_prefill(trunk, dims, x, cos, sin)
         hidden = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
-        logits = [_lm_head_logits(params, hidden[:, p], p - 1) for p in range(1, g)]
+        logits = [_lm_head_logits(params, hidden[:, p], p - 1, dims.group)
+                  for p in range(1, g)]
         if noise is None:  # greedy: one argmax over [B, G-1, V]
             new = torch.stack(logits, dim=1).argmax(dim=-1)
         else:

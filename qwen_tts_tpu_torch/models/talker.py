@@ -5,6 +5,8 @@ Separate codec and text embedding tables, a 2-layer SiLU text projection, a
 GQA trunk with QK-RMSNorm and 3-section M-RoPE, a final RMSNorm and the codec
 head. The post-norm last hidden state feeds the sub-talker at the next step.
 The KV cache is a tensor or, with ``kv_int8``, an int8 dict (``ops/attention.py``).
+On a tp rank (``parallel/mesh.py``) the config counts the rank's heads, so
+the cache holds the rank's KV heads; the codec head stays whole.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 from qwen_tts_tpu_torch.config import TalkerConfig
 from qwen_tts_tpu_torch.models.trunk import (
     TrunkDims,
+    dims_of,
     init_trunk_params,
     trunk_decode_step,
     trunk_prefill,
@@ -28,16 +31,9 @@ from qwen_tts_tpu_torch.utils import normal_init
 
 
 def talker_dims(cfg: TalkerConfig) -> TrunkDims:
-    return TrunkDims(
-        num_layers=cfg.num_hidden_layers,
-        hidden=cfg.hidden_size,
-        heads=cfg.num_attention_heads,
-        kv_heads=cfg.num_key_value_heads,
-        head_dim=cfg.head_dim,
-        intermediate=cfg.intermediate_size,
-        eps=cfg.rms_norm_eps,
-        qk_norm=True,
-    )
+    """The trunk's dims; on a tp rank (a config from ``shard_params``) the
+    rank's, with its tp group."""
+    return dims_of(cfg)
 
 
 def init_talker_params(generator: torch.Generator, cfg: TalkerConfig, dtype=torch.float32,

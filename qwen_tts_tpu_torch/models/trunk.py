@@ -24,6 +24,16 @@ tensors; the products that read one x (q|k|v, gate|up) are one launch.
 (two products a layer instead of five); the trunk functions detect the fused
 keys, float or int8, with the JAX package's precedence: separate int8
 weights first, then fused ones, then separate float ones.
+
+Tensor parallelism (``parallel/mesh.py``): a rank's ``TrunkDims`` count its
+own heads, KV heads and intermediate width and carry the tp group
+(``group``). With a group the functions call ``copy_to_tp`` before the
+column-parallel products (q/k/v, gate/up) and ``reduce_from_tp`` after the
+row-parallel ones (o, down), before the LayerScale and the residual add;
+they reduce whenever they hold a group, whatever its size. The per-head
+norms (and ``wk`` / ``wv`` where they are whole on every rank, ``kv_slice``)
+go through ``copy_to_tp`` too: each rank applies them to its own heads, so
+their gradients sum over the ranks. Without a group nothing changes.
 """
 
 from __future__ import annotations
@@ -34,11 +44,13 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from qwen_tts_tpu_torch.config import placement_of
 from qwen_tts_tpu_torch.ops.attention import KVCache, attention_prefill, int8_scale, quantize_kv
 from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
 from qwen_tts_tpu_torch.ops.cuda.int8_matmul import int8_matmul, int8_matmul_group
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import apply_rope
+from qwen_tts_tpu_torch.parallel.comm import copy_to_tp, reduce_from_tp
 from qwen_tts_tpu_torch.utils import normal_init
 
 
@@ -51,6 +63,29 @@ class TrunkDims(NamedTuple):
     intermediate: int
     eps: float
     qk_norm: bool = True
+    # Tensor parallelism: the tp group (None on one device or for a trunk
+    # whole on every rank) and, where ``wk`` / ``wv`` are whole, the KV heads
+    # [first, end) this rank keeps.
+    group: object = None
+    kv_slice: Optional[Tuple[int, int]] = None
+
+
+def dims_of(cfg, qk_norm: bool = True) -> TrunkDims:
+    """A talker's or code predictor's ``TrunkDims``, with the tp group and
+    KV slice of the config's placement."""
+    placement = placement_of(cfg)
+    return TrunkDims(
+        num_layers=cfg.num_hidden_layers,
+        hidden=cfg.hidden_size,
+        heads=cfg.num_attention_heads,
+        kv_heads=cfg.num_key_value_heads,
+        head_dim=cfg.head_dim,
+        intermediate=cfg.intermediate_size,
+        eps=cfg.rms_norm_eps,
+        qk_norm=qk_norm,
+        group=None if placement is None else placement.tp_group,
+        kv_slice=None if placement is None else placement.kv_slice,
+    )
 
 
 _PROJECTIONS = ("wq", "wk", "wv", "wo", "gate", "up", "down", "wqkv", "wgu")
@@ -159,8 +194,11 @@ def _project_qkv(layer: dict, x: torch.Tensor, dims: TrunkDims):
             [dims.heads * dims.head_dim, dims.kv_heads * dims.head_dim,
              dims.kv_heads * dims.head_dim], dim=-1)
     q = q.unflatten(-1, (dims.heads, dims.head_dim))
-    k = k.unflatten(-1, (dims.kv_heads, dims.head_dim))
-    v = v.unflatten(-1, (dims.kv_heads, dims.head_dim))
+    k = k.unflatten(-1, (-1, dims.head_dim))
+    v = v.unflatten(-1, (-1, dims.head_dim))
+    if getattr(dims, "kv_slice", None) is not None:
+        first, end = dims.kv_slice
+        k, v = k[..., first:end, :], v[..., first:end, :]
     if dims.qk_norm:
         q = rms_norm(q, layer["q_norm"], dims.eps)
         k = rms_norm(k, layer["k_norm"], dims.eps)
@@ -175,6 +213,34 @@ def _mlp(layer: dict, x: torch.Tensor) -> torch.Tensor:
     else:
         gate, up = _w_matmul(layer, "wgu", x).chunk(2, dim=-1)
     return _w_matmul(layer, "down", F.silu(gate) * up)
+
+
+def _group(dims) -> object:
+    """The tp group of ``dims`` (None for dims without the field, as the
+    JAX package's, which the functions also take)."""
+    return getattr(dims, "group", None)
+
+
+def _tp_layer(layer: dict, dims: TrunkDims) -> dict:
+    """``layer`` with the whole weights that each rank applies to its own
+    heads behind ``copy_to_tp`` (their gradients sum over the tp group)."""
+    group = _group(dims)
+    if group is None:
+        return layer
+    keys = ("q_norm", "k_norm") + (("wk", "wv") if dims.kv_slice is not None else ())
+    return {**layer, **{k: copy_to_tp(layer[k], group) for k in keys if k in layer}}
+
+
+def _attn_out(layer: dict, attn: torch.Tensor, dims: TrunkDims) -> torch.Tensor:
+    """o_proj (+ LayerScale) of the attention output [..., H, hd]."""
+    out = reduce_from_tp(_w_matmul(layer, "wo", attn.flatten(-2)), _group(dims))
+    return _maybe_scale(layer, "attn_scale", out)
+
+
+def _mlp_out(layer: dict, h: torch.Tensor, dims: TrunkDims) -> torch.Tensor:
+    """The post-attention norm, SwiGLU and LayerScale of the residual ``h``."""
+    x = copy_to_tp(rms_norm(h, layer["post_attn_norm"], dims.eps), _group(dims))
+    return _maybe_scale(layer, "mlp_scale", reduce_from_tp(_mlp(layer, x), _group(dims)))
 
 
 def _maybe_scale(layer: dict, key: str, x: torch.Tensor) -> torch.Tensor:
@@ -212,14 +278,14 @@ def trunk_prefill(
     cos4, sin4 = cos[:, :, None, :], sin[:, :, None, :]
 
     def layer_step(h, layer, window):
-        x = rms_norm(h, layer["input_norm"], dims.eps)
+        layer = _tp_layer(layer, dims)
+        x = copy_to_tp(rms_norm(h, layer["input_norm"], dims.eps), _group(dims))
         q, k, v = _project_qkv(layer, x, dims)
         q = apply_rope(q, cos4, sin4)
         k = apply_rope(k, cos4, sin4)
         attn = attention_prefill(q, k, v, pad_mask=pad_mask, sliding_window=window)
-        h = h + _maybe_scale(layer, "attn_scale", _w_matmul(layer, "wo", attn.flatten(-2)))
-        h = h + _maybe_scale(
-            layer, "mlp_scale", _mlp(layer, rms_norm(h, layer["post_attn_norm"], dims.eps)))
+        h = h + _attn_out(layer, attn, dims)
+        h = h + _mlp_out(layer, h, dims)
         return h, k, v
 
     ks, vs = [], []
@@ -282,8 +348,8 @@ def trunk_decode_step(
         valid_from = torch.zeros_like(cur_len)
     cos3, sin3 = cos[:, None, :], sin[:, None, :]
     for l in range(dims.num_layers):
-        layer = _layer(params, l)
-        x = rms_norm(hidden, layer["input_norm"], dims.eps)
+        layer = _tp_layer(_layer(params, l), dims)
+        x = copy_to_tp(rms_norm(hidden, layer["input_norm"], dims.eps), _group(dims))
         q, k, v = _project_qkv(layer, x, dims)
         q = apply_rope(q, cos3, sin3)
         k = apply_rope(k, cos3, sin3)
@@ -292,8 +358,6 @@ def trunk_decode_step(
         window = sliding_window if layer_windows is None else int(layer_windows[l])
         attn = decode_attention(q, _cache_layer(k_cache, l), _cache_layer(v_cache, l),
                                 cur_len, valid_from, window)
-        hidden = hidden + _maybe_scale(
-            layer, "attn_scale", _w_matmul(layer, "wo", attn.flatten(-2)))
-        hidden = hidden + _maybe_scale(
-            layer, "mlp_scale", _mlp(layer, rms_norm(hidden, layer["post_attn_norm"], dims.eps)))
+        hidden = hidden + _attn_out(layer, attn, dims)
+        hidden = hidden + _mlp_out(layer, hidden, dims)
     return hidden, k_cache, v_cache

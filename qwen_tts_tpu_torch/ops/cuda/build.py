@@ -22,9 +22,12 @@ from typing import Dict
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+# ``-split-compile=0`` optimizes a source's kernels in parallel on every
+# host core: decode_attention.cu's 40 instantiations built in 35 s instead of
+# 60 on the H100's 8-core host, beside the other three sources.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v", "-split-compile=0",
 )
 
 _lock = threading.Lock()  # guards _name_locks

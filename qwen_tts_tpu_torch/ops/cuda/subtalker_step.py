@@ -156,6 +156,19 @@ class SubtalkerPack(dict):
             self._scratch[batch] = buf
         return buf
 
+    def plain_rows(self) -> dict:
+        """``unpack_subtalker_weights`` of the pack with the int8 weights
+        widened to f32 (the values ``subtalker_step_rows`` multiplies), made
+        at the first call and kept: the CPU's micro-steps read them at every
+        call, where untiling and widening the weights at each call cost more
+        than the step (~320 MB at the flagship dims; CPU packs only)."""
+        if self._plain_rows is None:
+            rows = unpack_subtalker_weights(self)
+            for name in ("wqkv", "wo", "wgu", "down"):
+                rows[name] = rows[name].float()
+            self._plain_rows = rows
+        return self._plain_rows
+
     def trunk(self) -> dict:
         """The ``quantize_trunk_int8`` tree of the unfused trunk, bit for bit
         (a fused tree's weights split again): the same weights untiled, for
@@ -235,6 +248,7 @@ def _check_pack(pack: SubtalkerPack) -> None:
     n_layers, d, n_qkv, n_q, inter = _pack_dims(pack)
     hd = pack["q_norm"].shape[1]
     pack.dtype, pack.device, pack._scratch, pack._trunk = dtype, pack["wqkv"].device, {}, None
+    pack._plain_rows = None
     for name in _NORMS:
         if pack[name].dtype != dtype:
             raise TypeError(f"pack_subtalker_weights: {name} is {pack[name].dtype}, "
@@ -407,7 +421,9 @@ def subtalker_step(
     block records SM cycles at its phase and barrier ends
     (``phase_breakdown``)."""
     if not x.is_cuda:
-        return subtalker_step_plain(packed, x, cos, sin, k_cache, v_cache, pos, eps)
+        rows = (packed.plain_rows() if isinstance(packed, SubtalkerPack)
+                else unpack_subtalker_weights(packed))
+        return subtalker_step_rows(rows, x, cos, sin, k_cache, v_cache, pos, eps)
 
     _check_call(packed, x, cos, sin, k_cache, v_cache, pos, timeline)
     b = x.shape[0]

@@ -19,9 +19,11 @@ bits.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+
+from qwen_tts_tpu_torch.config import placement_of
 
 NEG_INF = -1e9
 
@@ -83,11 +85,33 @@ def _top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     return logits.masked_fill(logits < cutoff, NEG_INF)
 
 
-def exponential_race(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
+def draw_rows(cfg, batch: int) -> Optional[Tuple[int, int]]:
+    """(first row, global rows) of a dp rank's ``batch`` rows in the global
+    batch, from the placement of ``cfg`` (a talker or code-predictor config;
+    ``parallel/mesh.py``); None off a dp mesh. Every dp rank shards the
+    global batch evenly (``shard_rows``)."""
+    placement = placement_of(cfg)
+    if placement is None or placement.dp_size == 1:
+        return None
+    return placement.dp_rank * batch, placement.dp_size * batch
+
+
+def exponential_race(shape, generator: Optional[torch.Generator], device,
+                     rows: Optional[Tuple[int, int]] = None) -> torch.Tensor:
     """E ~ Exp(1) per entry, f32, drawn from ``generator``: the noise of an
-    exponential race (``sample_token``'s ``race``)."""
-    return torch.empty(shape, dtype=torch.float32, device=device).exponential_(
+    exponential race (``sample_token``'s ``race``). With ``rows`` (first,
+    global; ``draw_rows``) the batch axis (-2) is a dp rank's rows: the
+    global batch's races are drawn and the rank's kept, so the ranks of a
+    dp mesh draw what one device draws for the whole batch."""
+    if rows is None:
+        return torch.empty(shape, dtype=torch.float32, device=device).exponential_(
+            generator=generator)
+    first, total = rows
+    full = list(shape)
+    full[-2] = total
+    race = torch.empty(full, dtype=torch.float32, device=device).exponential_(
         generator=generator)
+    return race.narrow(-2, first, shape[-2])
 
 
 def sample_token(

@@ -16,6 +16,11 @@ the params tree the caller passes and ``optimizer.init`` of it. Every leaf's
 key, shape and dtype must match, and the files may hold no other leaf; any
 difference raises ``ValueError``. The values restored are the bits saved,
 so a resumed run continues as the uninterrupted one would.
+
+Under tp (``sharding``, ``parallel/mesh.py``'s ``ParamSharding``) a snapshot
+gathers the split leaves (every rank calls it) and global rank 0 alone
+writes: the files are the ones a single device writes. A restore reads the
+whole leaves and puts each rank's slice back into its template.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from qwen_tts_tpu_torch.io.safetensors import SafeTensorsFile, save_file
+from qwen_tts_tpu_torch.parallel.multihost import writes_files
 
 def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
     """Nested dicts and lists of tensors → {"a/b/0/c": tensor}."""
@@ -44,18 +50,19 @@ def flatten(tree, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def _restore(template, loaded: Dict[str, torch.Tensor], what: str, into: bool,
-             prefix: str = ""):
-    """``template``'s structure holding the loaded bits: in the template's
-    own leaves (``into``: a freshly built state) or in new tensors on their
-    devices."""
+             prefix: str = "", sharding=None):
+    """``template``'s structure holding the loaded bits (the rank's slices
+    under ``sharding``): in the template's own leaves (``into``: a freshly
+    built state) or in new tensors on their devices."""
     if isinstance(template, dict):
-        return {k: _restore(v, loaded, what, into, f"{prefix}/{k}" if prefix else str(k))
+        return {k: _restore(v, loaded, what, into, f"{prefix}/{k}" if prefix else str(k),
+                            sharding)
                 for k, v in template.items()}
     if isinstance(template, (list, tuple)):
         return type(template)(
-            _restore(v, loaded, what, into, f"{prefix}/{i}" if prefix else str(i))
+            _restore(v, loaded, what, into, f"{prefix}/{i}" if prefix else str(i), sharding)
             for i, v in enumerate(template))
-    src = loaded[prefix]
+    src = loaded[prefix] if sharding is None else sharding.shard(prefix, loaded[prefix])
     if src.shape != template.shape or src.dtype != template.dtype:
         raise ValueError(f"{what} {prefix!r}: the snapshot holds {src.dtype} "
                          f"{tuple(src.shape)}, the fresh state {template.dtype} "
@@ -64,9 +71,15 @@ def _restore(template, loaded: Dict[str, torch.Tensor], what: str, into: bool,
 
 
 def save_train_state(ckpt_dir: str, params: Any, opt_state: Any, *, step: int,
-                     epoch: int = 0, extra: Optional[Dict[str, Any]] = None) -> str:
-    """Snapshot the full train state; returns the checkpoint directory."""
+                     epoch: int = 0, extra: Optional[Dict[str, Any]] = None,
+                     sharding=None) -> str:
+    """Snapshot the full train state; returns the checkpoint directory.
+    Under ``sharding`` every rank calls it and rank 0 writes."""
     ckpt_dir = os.path.abspath(ckpt_dir)
+    if sharding is not None:
+        params, opt_state = sharding.gather_tree(params), sharding.gather_tree(opt_state)
+    if not writes_files():
+        return ckpt_dir
     os.makedirs(ckpt_dir, exist_ok=True)
     state_name = f"state.step{int(step)}"
     state_dir = os.path.join(ckpt_dir, state_name)
@@ -88,11 +101,12 @@ def save_train_state(ckpt_dir: str, params: Any, opt_state: Any, *, step: int,
     return ckpt_dir
 
 
-def load_train_state(ckpt_dir: str, params_template: Any, optimizer
+def load_train_state(ckpt_dir: str, params_template: Any, optimizer, sharding=None
                      ) -> Tuple[Any, Any, Dict[str, Any]]:
     """(params, opt_state, meta) from :func:`save_train_state`, into the
     structure, shapes, dtypes and devices of ``params_template`` and
-    ``optimizer.init(params_template)``."""
+    ``optimizer.init(params_template)``; under ``sharding`` the templates
+    are a rank's and take its slices."""
     ckpt_dir = os.path.abspath(ckpt_dir)
     with open(os.path.join(ckpt_dir, "meta.json")) as f:
         meta = json.load(f)
@@ -108,7 +122,8 @@ def load_train_state(ckpt_dir: str, params_template: Any, optimizer
                     f"{name}: the snapshot's leaves differ from the fresh state's "
                     f"(only in the snapshot: {sorted(have - want)[:5]}; only in the "
                     f"fresh state: {sorted(want - have)[:5]})")
-            restored.append(_restore(template, {k: st.get(k) for k in have}, name, into))
+            restored.append(_restore(template, {k: st.get(k) for k in have}, name, into,
+                                     sharding=sharding))
         finally:
             st.close()
     return restored[0], restored[1], meta

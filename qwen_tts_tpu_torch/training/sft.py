@@ -25,6 +25,15 @@ outside the loss). Its state is tensors: ``{"count", "mu", "nu"}``; its
 ``step`` applies an update in place, so that the card holds one copy of the
 params and moments (0.75 B parameters at the flagship widths: 12 GB with
 the gradients in f32).
+
+On a (dp, tp) mesh (``parallel/mesh.py``) the step takes a rank's shards and
+its config. Under dp each cross-entropy term is normalised by the global
+mask count (the counts are all-reduced first), and the gradients, the loss
+and its terms are all-reduced over dp: the loss is the single-device
+batch's, up to the order of the sums; padded rows (all masked) are neutral.
+Under tp the trunk's collectives make the gradients of whole leaves full on
+every rank, and ``Optimizer.step``'s global norm sums the squares of the
+split leaves over tp and counts whole leaves once.
 """
 
 from __future__ import annotations
@@ -35,12 +44,13 @@ from typing import Callable, Dict, Iterator, List, NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from qwen_tts_tpu_torch.config import TalkerConfig
+from qwen_tts_tpu_torch.config import TalkerConfig, placement_of
 from qwen_tts_tpu_torch.models import subtalker as st_mod
 from qwen_tts_tpu_torch.models import talker as talker_mod
 from qwen_tts_tpu_torch.models.trunk import trunk_prefill
 from qwen_tts_tpu_torch.ops.norms import rms_norm
 from qwen_tts_tpu_torch.ops.rope import rope_cos_sin
+from qwen_tts_tpu_torch.parallel.comm import all_reduce, copy_to_tp, gather_last_dim
 from qwen_tts_tpu_torch.utils import full_f32
 
 # The cuBLAS workspace setting that deterministic algorithms need; read when
@@ -61,18 +71,31 @@ class SFTBatch(NamedTuple):
     frame_mask: torch.Tensor     # [B, S] bool: positions with codec frames
 
 
-def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+def _ce(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
+        dp_group=None) -> torch.Tensor:
+    """The masked mean cross-entropy; under dp (``dp_group``) this rank's
+    share of the global batch's: its sum over the global mask count."""
     logp = F.log_softmax(logits.float(), dim=-1)
     ll = logp.gather(-1, labels.clamp(min=0)[..., None])[..., 0]
     mask = mask.float()
-    return -(ll * mask).sum() / mask.sum().clamp(min=1.0)
+    count = mask.sum()
+    if dp_group is not None:
+        count = all_reduce(count.detach().clone(), dp_group)
+    return -(ll * mask).sum() / count.clamp(min=1.0)
+
+
+def _dp_group(cfg):
+    placement = placement_of(cfg)
+    return None if placement is None else placement.dp_group
 
 
 def sft_loss(params: dict, cfg: TalkerConfig, batch: SFTBatch,
              remat: bool = False) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, {"talker_ce", "subtalker_ce"}) of one batch; differentiable
-    in ``params``."""
+    in ``params``. Under dp, this rank's share of the global batch's loss
+    (``loss_and_grads`` sums the shares)."""
     tp, sp = params["talker"], params["subtalker"]
+    dp_group = _dp_group(cfg)
     b, s, d = batch.inputs_embeds.shape
     g = cfg.num_code_groups
 
@@ -85,7 +108,7 @@ def sft_loss(params: dict, cfg: TalkerConfig, batch: SFTBatch,
     hidden = rms_norm(hidden, tp["norm"], cfg.rms_norm_eps)
     logits = hidden @ tp["codec_head"]
     talker_mask = (batch.codec0_labels != -100) & batch.pad_mask
-    talker_ce = _ce(logits, batch.codec0_labels, talker_mask)
+    talker_ce = _ce(logits, batch.codec0_labels, talker_mask, dp_group)
 
     # ---- sub-talker CE (teacher-forced, every position's frame at once) ---
     cp = cfg.code_predictor
@@ -100,14 +123,17 @@ def sft_loss(params: dict, cfg: TalkerConfig, batch: SFTBatch,
     st_in = st_mod._project_input(sp, torch.cat(seq, dim=1))           # [N, G, D]
     st_pos = torch.arange(g, device=st_in.device)[None].expand(b * s, g)
     st_cos, st_sin = rope_cos_sin(st_pos, cp.head_dim, cp.rope_theta)
-    st_hidden, _, _ = trunk_prefill(
-        sp["trunk"], st_mod.subtalker_dims(cp), st_in, st_cos, st_sin, remat=remat)
+    st_dims = st_mod.subtalker_dims(cp)
+    st_hidden, _, _ = trunk_prefill(sp["trunk"], st_dims, st_in, st_cos, st_sin, remat=remat)
     st_hidden = rms_norm(st_hidden, sp["norm"], cp.rms_norm_eps)
-    # Position i (1..G-1) predicts group i through lm_heads[i-1].
-    st_logits = torch.einsum("nid,idv->niv", st_hidden[:, 1:], sp["lm_heads"])
+    # Position i (1..G-1) predicts group i through lm_heads[i-1] (under tp
+    # the rank's vocab slice, the logits gathered).
+    st_logits = gather_last_dim(torch.einsum(
+        "nid,idv->niv", copy_to_tp(st_hidden[:, 1:], st_dims.group), sp["lm_heads"]),
+        st_dims.group)
     st_labels = flat_groups[:, 1:]
     st_mask = batch.frame_mask.reshape(b * s)[:, None].expand(st_labels.shape)
-    st_ce = _ce(st_logits, st_labels, st_mask)
+    st_ce = _ce(st_logits, st_labels, st_mask, dp_group)
 
     loss = talker_ce + 0.3 * st_ce
     return loss, {"talker_ce": talker_ce, "subtalker_ce": st_ce}
@@ -124,6 +150,17 @@ def tree_leaves(tree) -> List[torch.Tensor]:
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree, prefix: str = "") -> List[str]:
+    """The paths (``talker/trunk/wq``) of ``tree_leaves``' leaves, in order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in tree_paths(tree[k], f"{prefix}/{k}" if prefix
+                                                             else str(k))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, f"{prefix}/{i}" if prefix else str(i))]
+    return [prefix]
 
 
 def tree_unflatten(tree, leaves: Iterator[torch.Tensor]):
@@ -168,16 +205,27 @@ class Optimizer(NamedTuple):
                 "nu": tree_map(torch.zeros_like, params)}
 
     @torch.no_grad()
-    def step(self, grads, state: dict, params) -> None:
+    def step(self, grads, state: dict, params, sharding=None) -> None:
         """One update of ``params`` and ``state`` (in place) by ``grads``, a
         tree of the params' structure. Each leaf is updated in pieces of at
         most ``_PIECE`` elements, so the update's temporaries stay small
         beside the params (the text embedding alone is 1.2 GB at the
         flagship widths); the update is elementwise, so the pieces give the
-        whole leaf's bits."""
+        whole leaf's bits. Under tp, ``sharding`` (``mesh.ParamSharding``)
+        names the split leaves: the global norm sums their squares over the
+        tp group and counts whole leaves, the same on every rank, once."""
         flat = tree_leaves(grads)
         # clip_by_global_norm: (g / |g|) * c where |g| >= c, else g.
-        g_norm = torch.sqrt(sum((g * g).sum() for leaf in flat for (g,) in _pieces(leaf)))
+        squares = [sum((g * g).sum() for (g,) in _pieces(leaf)) for leaf in flat]
+        if sharding is None:
+            g_norm = torch.sqrt(sum(squares))
+        else:
+            split = [sharding.axis(path) is not None for path in tree_paths(grads)]
+            whole = sum(sq for sq, sp in zip(squares, split) if not sp)
+            parts = sum(sq for sq, sp in zip(squares, split) if sp)
+            parts = all_reduce(torch.as_tensor(parts, device=flat[0].device).clone(),
+                               sharding.group)
+            g_norm = torch.sqrt(whole + parts)
         clip = g_norm >= self.grad_clip
         # scale_by_adam, then add_decayed_weights, then scale by -lr and add.
         state["count"].add_(1)
@@ -238,26 +286,39 @@ def step_mode(device: torch.device) -> Iterator[None]:
 
 def loss_and_grads(params: dict, cfg: TalkerConfig, batch: SFTBatch, remat: bool = False):
     """(loss, aux, grads) of ``sft_loss``; a leaf the loss does not reach
-    gets a zero gradient, as ``jax.grad`` gives it."""
+    gets a zero gradient, as ``jax.grad`` gives it. Under dp the gradients,
+    the loss and its terms are summed over the dp group: the global batch's."""
     leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
     live = tree_unflatten(params, iter(leaves))
     with torch.enable_grad():
         loss, aux = sft_loss(live, cfg, batch, remat)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
-    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
-            tree_unflatten(params, iter(grads)))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    loss, aux = loss.detach(), {k: v.detach() for k, v in aux.items()}
+    dp_group = _dp_group(cfg)
+    if dp_group is not None:
+        # A leaf the loss does not reach is unreached on every rank (the
+        # ranks run one graph): its zeros need no all-reduce.
+        grads = [None if g is None else g.contiguous() for g in grads]
+        for g in (loss, *aux.values(), *grads):
+            if g is not None:
+                all_reduce(g, dp_group)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, leaves)]
+    return loss, aux, tree_unflatten(params, iter(grads))
 
 
-def make_train_step(cfg: TalkerConfig, optimizer: Optimizer, remat: bool = False):
+def make_train_step(cfg: TalkerConfig, optimizer: Optimizer, remat: bool = False,
+                    sharding=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state, loss,
     aux)``: the trees passed in, updated in place, and returned. ``remat``
     recomputes every trunk layer in the backward pass (``trunk_prefill``):
-    lower peak memory for a second forward, the same values."""
+    lower peak memory for a second forward, the same values. On a mesh,
+    ``cfg`` and the trees are a rank's (``shard_params``), ``batch`` its rows
+    and ``sharding`` the split leaves."""
 
     def train_step(params: dict, opt_state: dict, batch: SFTBatch):
         with step_mode(batch.inputs_embeds.device):
             loss, aux, grads = loss_and_grads(params, cfg, batch, remat)
-            optimizer.step(grads, opt_state, params)
+            optimizer.step(grads, opt_state, params, sharding)
         return params, opt_state, loss, aux
 
     return train_step

@@ -4,12 +4,13 @@
 State is stacked ``[G, Q, ...]`` codebook buffers (``VQState``); one train
 step is ``(state, params, x, generator) -> (state', out)`` and returns new
 tensors. The residual loop over quantizers and the group split of GRVQ are
-Python loops. The per-batch statistics (counts and per-code embedding sums)
-are what a data-parallel step would all-reduce before the EMA update;
-``vq_train_step`` takes a ``torch.distributed`` process group where the JAX
-function takes a mesh axis name. The collectives that group needs
-(``_all_reduce``, ``_all_mean``, ``_all_gather_rows``, ``_rank0``) are the data-parallel
-slice's to write: with a group they raise.
+Python loops. Data parallelism: ``vq_train_step`` takes a
+``torch.distributed`` process group where the JAX function takes a mesh axis
+name, the batch split over its ranks. The per-batch statistics (counts and
+per-code embedding sums) are all-reduced before the EMA update, k-means
+init runs on every rank's rows, and dead-code replacements and the
+quantize-dropout cap are rank 0's, so every rank keeps the same buffers,
+those of the full-batch step (``make_sharded_vq_train_step``).
 
 As in the JAX package: channels-last ``[B, T, D]``, the group split over
 features, the nearest code by the reference's negated squared distance and
@@ -30,6 +31,8 @@ import dataclasses
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+
+from qwen_tts_tpu_torch.parallel import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,38 +134,36 @@ def init_vq_params(cfg: VQTrainConfig, generator: torch.Generator,
 
 
 # --------------------------------------------------------------------------
-# collectives of a data-parallel step (the data-parallel slice fills them in)
-
-
-def _not_yet(group) -> None:
-    if group is not None:
-        raise NotImplementedError(
-            "a data-parallel VQ step (a process group) comes with the port's "
-            "parallelism; pass group=None")
+# collectives of a data-parallel step (no group: one device)
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the group's ranks (JAX: ``lax.psum``)."""
-    _not_yet(group)
-    return x
+    return x if group is None else comm.all_reduce(x.contiguous().clone(), group)
 
 
 def _all_mean(x: torch.Tensor, group) -> torch.Tensor:
-    """The mean over the group's ranks (JAX: ``lax.pmean``)."""
-    _not_yet(group)
-    return x
+    """The mean over the group's ranks (JAX: ``lax.pmean``); its gradient
+    reaches this rank's ``x`` as 1 / ranks."""
+    if group is None:
+        return x
+    n = comm.group_size(group)
+    mean = _all_reduce(x.detach(), group) / n
+    return x / n + (mean - x / n).detach()
 
 
 def _all_gather_rows(x: torch.Tensor, group) -> torch.Tensor:
-    """Every rank's rows, concatenated (JAX: ``lax.all_gather``)."""
-    _not_yet(group)
-    return x
+    """Every rank's rows, concatenated in rank order (JAX:
+    ``lax.all_gather``); every rank holds as many."""
+    return x if group is None else comm.gather(x.contiguous(), group, 0)
 
 
 def _rank0(x: torch.Tensor, group) -> torch.Tensor:
     """Rank 0's value on every rank."""
-    _not_yet(group)
-    return x
+    if group is None:
+        return x
+    out = x.contiguous().clone() if comm.group_rank(group) == 0 else torch.zeros_like(x)
+    return comm.all_reduce(out, group)
 
 
 # --------------------------------------------------------------------------
@@ -340,9 +341,10 @@ def vq_train_step(state: VQState, params: Optional[dict], x: torch.Tensor,
                   generator: torch.Generator, *, cfg: VQTrainConfig, n_q: Optional[int] = None,
                   group=None) -> Tuple[VQState, VQOutput]:
     """One training forward and EMA codebook update over every group and
-    quantizer. ``group`` (a ``torch.distributed`` process group, the batch
-    split over its ranks) is where a data-parallel step will come in; with
-    one the step now raises ``NotImplementedError``."""
+    quantizer. With ``group`` (a ``torch.distributed`` process group) ``x``
+    is this rank's rows of the batch: the statistics are summed over the
+    group, and every rank returns the full-batch step's buffers and loss
+    with its own rows' outputs."""
     g = cfg.num_groups
     b, t, _ = x.shape
     xg = x.reshape(b, t, g, cfg.group_dim)
@@ -363,6 +365,22 @@ def vq_train_step(state: VQState, params: Optional[dict], x: torch.Tensor,
     indices = torch.stack([r[2] for r in per_group])
     loss = torch.stack([r[3] for r in per_group]).mean(dim=0)
     return new_state, VQOutput(quant, indices, loss)
+
+
+def make_sharded_vq_train_step(group, cfg: VQTrainConfig, n_q: Optional[int] = None):
+    """The data-parallel train step (JAX: ``make_sharded_vq_train_step``, a
+    ``shard_map`` over a mesh axis): ``step(state, params, x, generator)`` on
+    this rank's rows ``x`` of the batch, with the state and params whole on
+    every rank; the all-reduced statistics keep every rank's state the same
+    and equal to the full-batch step's. Every rank passes a generator in the
+    same state. Returns (state, VQOutput) with this rank's rows' quantized
+    output and indices and the batch's loss."""
+
+    def step(state: VQState, params: Optional[dict], x: torch.Tensor,
+             generator: torch.Generator) -> Tuple[VQState, VQOutput]:
+        return vq_train_step(state, params, x, generator, cfg=cfg, n_q=n_q, group=group)
+
+    return step
 
 
 def vq_encode(state: VQState, params: Optional[dict], x: torch.Tensor, *,

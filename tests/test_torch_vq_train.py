@@ -199,9 +199,20 @@ def test_q0_ds_ratio_mechanics():
 
 
 def test_a_process_group_waits_for_the_parallelism_slice():
-    cfg = tvq.VQTrainConfig(dim=4, codebook_size=8, kmeans_init=False,
-                            threshold_ema_dead_code=0.0)
-    state = tvq.init_vq_state(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="parallelism"):
-        tvq.vq_train_step(state, None, torch.zeros(1, 2, 4), torch.Generator(), cfg=cfg,
-                          group=object())
+    """The data-parallel step has come (``tests/test_torch_parallel_train.py``
+    holds it at dp 4): a one-rank group, which no longer raises, gives the
+    group-less step's bits."""
+    import torch.distributed as dist
+
+    cfg = tvq.VQTrainConfig(dim=4, codebook_size=8, kmeans_iters=3,
+                            threshold_ema_dead_code=2.0)
+    group = dist.ProcessGroupGloo(dist.HashStore(), 0, 1)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, 6, 4)).astype(np.float32))
+    outs = []
+    for g in (None, group):
+        state = tvq.init_vq_state(cfg, torch.Generator().manual_seed(0))
+        outs.append(tvq.vq_train_step(state, None, x, torch.Generator().manual_seed(3),
+                                      cfg=cfg, group=g))
+    (s0, o0), (s1, o1) = outs
+    for a, b in zip((*s0, *o0), (*s1, *o1)):
+        assert torch.equal(a, b)
