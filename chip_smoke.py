@@ -47,10 +47,19 @@ Phases, each of which exits non-zero on failure:
    decode loop and the whole call timed through the graphs and eagerly, two
    runs each in turns (ms/step, RTF, peak memory), and torch.profiler over a
    16-frame decode segment each way (device idle share against three
-   unprofiled runs, host launch calls per frame);
+   unprofiled runs, host launch calls per frame), the replayed one through
+   ``utils.profile_trace``, whose written trace must hold exactly the
+   decode-attention launches the wrappers counted in it; then the native
+   host runtime (``io/native.py``, built with g++): a flagship shard's bf16
+   tensor through ``NativeMap.view`` and ``bf16_to_f32`` against the
+   reader and torch's cast, bit for bit, and ``write_wav`` against
+   ``io/wav.py`` (same header, samples by the runtime's rounding);
 5. parity: the same checkpoint in f32 on the card and on the CPU must give
    the same greedy codes (the card's recorded run eager, its replayed codes
-   equal to them);
+   equal to them); then ``validation.check_parity`` on the card at full
+   depth, one prompt, ``ORACLE_TOKENS`` greedy tokens: the captured frames
+   against the cache-free oracle token for token, the stop included, or
+   apart only at a near tie (``ORACLE_NEAR_TIE_REL``);
 6. serving: the same checkpoint and texts after
    ``quantize_for_serving(talker=True, kv=True)``; the micro-step kernel must
    launch exactly frames x groups times, the int8-cache attention frames x
@@ -79,7 +88,9 @@ Phases, each of which exits non-zero on failure:
    before the next flag read), and the streamed codes must equal
    ``generate_codes`` at the stream's prompt bucket (16); two streams each
    through the graphs and eagerly, in turns, and the eager first packet
-   stage by stage (CUDA events);
+   stage by stage (CUDA events); then the demo's custom-voice callback
+   (``demo.py`` under a gradio stand-in, greedy controls) against the
+   direct ``generate_custom_voice``, bit for bit;
 10. graphs: the replayed decode against the eager frame loop, each through
    the module's own function, bit for bit (codes, buffer, state): bf16,
    serving and serving + int8 KV at B=4 and GRAPH_FRAMES frames, the talker
@@ -193,8 +204,15 @@ Phases, each of which exits non-zero on failure:
    shapes; (d) the SFT CLI's run with ``--dp 2 --tp 2`` in the four ranks of
    (c), as under a launcher, on the Base checkpoint with the talker cut to 4
    layers: the step-0 loss against one device's, the snapshot's tensors one
-   device's names, shapes and dtypes. The children load the kernels phase 2
-   built.
+   device's names, shapes and dtypes; the tp serving engine
+   (``continuous.py``): (c)'s ranks run two tp-2 engines at once, one per dp
+   shard, f32, 3 greedy requests over 2 slots in segments of 2 frames, each
+   led by its tp rank 0, the leaders' codes equal to the unsharded engine's
+   on this process (or first apart at a near tie), each follower's segments
+   equal to its leader's; (b)'s child runs the engine on its one-rank NCCL
+   group (its own leader, bf16, captured frames), codes equal to the
+   unsharded engine's; frames a second and launches of each. The children
+   load the kernels phase 2 built.
 
 Phase 7's ``QTTS_ST_KV8=1`` run also feeds the card's sub-talker int8 cache
 to the CPU (``hold_fed_subtalker_kv``) and holds the logits within
@@ -2459,6 +2477,8 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
         fail(f"the {name} phase's graph and eager decodes disagree")
 
     profile_decode(model, prompts, kw, smi, name)
+    if not serving:
+        check_native_runtime(model_dir, wavs, sr, smi)
     if serving:
         casts = count_int8_weight_casts(model, prompts, dict(kw, max_new_tokens=3,
                                                              min_new_tokens=4))
@@ -2475,17 +2495,139 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
             "codec_walls": codec_walls}
 
 
+def check_native_runtime(model_dir: str, wavs, sr: int, smi: str) -> None:
+    """The native host runtime (``io/native.py``, built with g++ into
+    ``build/host/``): the largest bf16 tensor of at most 2^25 elements of the
+    flagship talker shard through ``NativeMap.view`` against the port's
+    reader, and ``bf16_to_f32`` of it against torch's cast, both bit for bit;
+    the path's first waveform through ``write_wav`` against ``io/wav.py``'s
+    file: the same 44-byte header, each sample the runtime's rounding (x *
+    32767 rounded half away from zero, in f32) and at most one step from
+    ``io/wav.py``'s (which truncates toward zero)."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.io import native
+    from qwen_tts_tpu_torch.io.safetensors import SafeTensorsFile
+    from qwen_tts_tpu_torch.io.wav import write_wav as py_write
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("native runtime: g++ could not build qwen_tts_tpu_torch/csrc/host/qtts_runtime.cpp")
+    build_s = time.perf_counter() - t0
+    path = os.path.join(model_dir, "model.safetensors")
+    reader = SafeTensorsFile(path)
+    m = native.NativeMap(path, prefetch_threads=8)
+    try:
+        header = json.loads(m.header_bytes())
+        name = max((k for k, v in header.items() if k != "__metadata__"
+                    and v["dtype"] == "BF16" and math.prod(v["shape"]) <= 2 ** 25),
+                   key=lambda k: math.prod(header[k]["shape"]))
+        begin, end = header[name]["data_offsets"]
+        view = m.view(begin, end)
+        want = reader.get(name)
+        same_bytes = view.tobytes() == want.view(torch.int16).numpy().tobytes()
+        t1 = time.perf_counter()
+        f32 = native.bf16_to_f32(view.view(np.uint16), n_threads=8)
+        convert_ms = (time.perf_counter() - t1) * 1e3
+        same_f32 = np.array_equal(f32.view(np.uint32),
+                                  want.float().reshape(-1).numpy().view(np.uint32))
+    finally:
+        m.close()
+        reader.close()
+    work = tempfile.mkdtemp(prefix="qtts_wav_")
+    try:
+        x = np.asarray(wavs[0], np.float32)
+        native.write_wav(os.path.join(work, "n.wav"), x, sr)
+        py_write(os.path.join(work, "p.wav"), x, sr)
+        with open(os.path.join(work, "n.wav"), "rb") as f:
+            raw_n = f.read()
+        with open(os.path.join(work, "p.wav"), "rb") as f:
+            raw_p = f.read()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    pcm_n, pcm_p = np.frombuffer(raw_n[44:], "<i2"), np.frombuffer(raw_p[44:], "<i2")
+    s32 = np.clip(x, -1, 1) * np.float32(32767)
+    rounded = np.where(s32 >= 0, s32 + np.float32(0.5), s32 - np.float32(0.5)).astype(np.int16)
+    steps = np.abs(pcm_n.astype(np.int32) - pcm_p)
+    log(f"native runtime: built and loaded in {build_s:.2f} s ({native.library_path()}); "
+        f"{name} {header[name]['shape']} bf16 through NativeMap.view equal to the reader's "
+        f"bytes: {same_bytes}; bf16_to_f32 equal to torch's cast bit for bit: {same_f32} "
+        f"({f32.size} elements in {convert_ms:.1f} ms, 8 threads); write_wav of a "
+        f"{x.size}-sample waveform: header equal to io/wav.py's {raw_n[:44] == raw_p[:44]}, "
+        f"samples the runtime's rounding {np.array_equal(pcm_n, rounded)}, {int(steps.sum())} "
+        f"of them one step from io/wav.py's truncation (max {int(steps.max())}) | {smi}")
+    if not (same_bytes and same_f32 and raw_n[:44] == raw_p[:44]
+            and np.array_equal(pcm_n, rounded) and steps.max() <= 1):
+        fail("native runtime: a view, a conversion or a WAV file differs")
+
+
 # Host calls that start device work, as the profiler names them: kernel
 # launches (``cudaLaunch*``, ``cuLaunch*``: plain, cooperative, extended)
 # and graph launches.
 HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch")
 
 
+def trace_kernel_count(trace_dir: str, name: str) -> tuple:
+    """(trace files, launches of the kernels whose name holds ``name``) in
+    the Chrome trace(s) that ``profile_trace`` wrote under ``trace_dir``."""
+    files = [os.path.join(r, f) for r, _, fs in os.walk(trace_dir) for f in fs
+             if f.endswith(".pt.trace.json")]
+    n = 0
+    for path in files:
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+        n += sum(1 for e in events if e.get("cat") == "kernel" and name in e.get("name", ""))
+    return files, n
+
+
+def traced_segment(model, inputs, params, frames: int, name: str):
+    """The replayed segment under ``utils.profile_trace``: the written trace
+    must hold exactly as many decode-attention launches (float and int8
+    cache) as their wrappers counted in the segment (captured launches x
+    replays). The card machine's profiler has lost device events in full
+    runs, so a trace that holds fewer is taken again, up to three times in
+    all; none holding them all fails the phase. Returns (state, buffer,
+    wall, profiler) as ``_segment``."""
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
+        decode_attention, decode_attention_int8)
+    from qwen_tts_tpu_torch.utils import profile_trace
+
+    seen = []
+    for attempt in range(3):
+        trace_dir = tempfile.mkdtemp(prefix="qtts_trace_")
+        t0 = time.perf_counter()
+        try:
+            before = decode_attention.launches + decode_attention_int8.launches
+            out = _segment(model, inputs, params, False, frames=frames,
+                           profiler=lambda: profile_trace(trace_dir))
+            counted = decode_attention.launches + decode_attention_int8.launches - before
+            written_s = time.perf_counter() - t0 - out[2]
+            files, traced = trace_kernel_count(trace_dir, "decode_attention_kernel")
+            size = sum(os.path.getsize(f) for f in files)
+            read_s = time.perf_counter() - t0 - out[2] - written_s
+        finally:
+            shutil.rmtree(trace_dir, ignore_errors=True)
+        seen.append(f"{traced} of {counted}")
+        if len(files) == 1 and counted > 0 and traced == counted:
+            log(f"{name} trace [graph]: profile_trace wrote {len(files)} Chrome trace "
+                f"({size / 2**20:.1f} MiB; prefill, profiler start and stop and the write "
+                f"{written_s:.1f} s, its read {read_s:.1f} s); decode_attention_kernel "
+                f"launches in it {traced}, "
+                f"counted by the wrappers in the segment {counted} ({frames} frames); traces "
+                f"taken {attempt + 1} ({seen})")
+            return out
+    fail(f"{name} trace: no trace of three held the segment's counted decode-attention "
+         f"launches (traced of counted: {seen})")
+
+
 def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) -> None:
     """Where a decode segment's time goes: torch.profiler over ``frames``
     frames at the path's shapes (the prefill before them, outside the
     profile), replayed and eager: device busy time by kernel against the
-    host's wall time, and the host calls that start device work."""
+    host's wall time, and the host calls that start device work. The
+    replayed segment runs under ``utils.profile_trace`` (``traced_segment``:
+    its trace holds the counted decode-attention launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2501,9 +2643,12 @@ def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) ->
         side = "graph" if i % 4 in (0, 3) else "eager"
         walls[side].append(_segment(model, inputs, params, side == "eager", frames=frames)[2])
     for side in ("graph", "eager"):
-        _, _, wall, prof = _segment(
-            model, inputs, params, side == "eager", frames=frames,
-            profiler=lambda: profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        if side == "graph":
+            _, _, wall, prof = traced_segment(model, inputs, params, frames, name)
+        else:
+            _, _, wall, prof = _segment(
+                model, inputs, params, True, frames=frames, profiler=lambda: profile(
+                    activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
         wall_ms = wall * 1e3
         events = prof.key_averages()
         device = sorted((e for e in events if e.device_type == DeviceType.CUDA),
@@ -2719,6 +2864,9 @@ def phase_parity(model_dir: str, mode: str = "float"):
         if not equal:
             fail(f"{name}: card and CPU greedy codes differ at (row, frame, group) "
                  f"{np.argwhere(a != b)[:5].tolist()}")
+        if mode == "float":
+            del models["cpu"]
+            check_oracle(card)
         return
 
     flips, entries, step = 0, 0, 0
@@ -2748,6 +2896,112 @@ def phase_parity(model_dir: str, mode: str = "float"):
     if st_entries is not None:
         hold_fed_subtalker_kv(name, models["cpu"], texts, speakers, kw, card_calls, st_entries,
                               scale)
+
+
+# Phase 5's greedy parity gate (``validation.check_parity``) at full depth on
+# the card: one prompt, ORACLE_TOKENS greedy tokens. The cached path (the
+# captured frames, the decode-attention kernel) and the cache-free oracle
+# (a whole prefill every step; the sub-talker step by step, through the
+# kernel) must agree token for token, the stop included. Set before the
+# first run: a divergence passes only as a near tie, where the oracle's
+# top-two logit gap at the diverging step (its talker's, or the smallest of
+# the sub-talker's in the frame before, whose codes feed that step) is at
+# most ORACLE_NEAR_TIE_REL of that call's largest |logit|.
+ORACLE_TOKENS = 24
+ORACLE_NEAR_TIE_REL = 1e-4
+
+
+class _ArgmaxGaps:
+    """Stands in for ``torch`` in ``validation``: each ``argmax`` also
+    records (top-two gap, largest |logit| over the unsuppressed entries) of
+    its input, in call order (per step: the talker's, then the sub-talker's
+    G - 1)."""
+
+    def __init__(self, torch_mod, calls: list):
+        self._torch, self.calls = torch_mod, calls
+
+    def __getattr__(self, name):
+        return getattr(self._torch, name)
+
+    def argmax(self, x, *args, **kwargs):
+        lg = x.float().reshape(-1, x.shape[-1])[0]
+        top2 = self._torch.topk(lg, 2).values
+        self.calls.append(((top2[0] - top2[1]).item(), lg[lg > -1e8].abs().max().item()))
+        return self._torch.argmax(x, *args, **kwargs)
+
+
+def check_oracle(model) -> None:
+    """``check_parity`` on the f32 card model at full depth (phase 5)."""
+    import torch
+
+    from qwen_tts_tpu_torch import validation
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+
+    tk = model.cfg.talker
+    g, st_layers = tk.num_code_groups, tk.code_predictor.num_hidden_layers
+    prompt = card_prompt(model, TEXTS[0], "aiden")
+    calls, launches, seconds = [], {}, {}
+    t0 = time.perf_counter()
+    validation.fast_greedy_trace(model.talker_params, model.subtalker_params, model.cfg,
+                                 prompt, ORACLE_TOKENS)  # its frame's capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    traces = {name: getattr(validation, name)
+              for name in ("fast_greedy_trace", "eager_greedy_trace")}
+
+    def counting(name):
+        def trace(*args):
+            before, t = decode_attention.launches, time.perf_counter()
+            out = traces[name](*args)
+            torch.cuda.synchronize()
+            launches[name] = decode_attention.launches - before
+            seconds[name] = time.perf_counter() - t
+            return out
+        return trace
+
+    for name in traces:
+        setattr(validation, name, counting(name))
+    validation.torch = _ArgmaxGaps(torch, calls)  # the oracle's argmax calls
+    try:
+        result = validation.check_parity(model.talker_params, model.subtalker_params,
+                                         model.cfg, prompt, ORACLE_TOKENS)
+    finally:
+        validation.torch = torch
+        for name, fn in traces.items():
+            setattr(validation, name, fn)
+    fast_launches, oracle_launches = (launches[n] for n in traces)
+    want_fast = len(result.fast.tokens) * (tk.num_hidden_layers + g * st_layers)
+    want_oracle = len(result.eager.tokens) * g * st_layers
+    lines = result.report().replace("\n", "; ")
+    log(f"parity oracle: check_parity f32 at full depth ({tk.num_hidden_layers} talker "
+        f"layers), prompt of {prompt.embeds.shape[0]} positions, {ORACLE_TOKENS} greedy tokens: "
+        f"{lines}; the fast trace's first run (its capture) {capture_s:.2f} s; in "
+        f"check_parity the fast trace (replayed frames) {seconds['fast_greedy_trace']:.2f} s, "
+        f"decode-attention launches {fast_launches} (predicted {want_fast} when no EOS cuts "
+        f"the last flag read's frames), the oracle {seconds['eager_greedy_trace']:.2f} s, "
+        f"launches (its sub-talker loop) {oracle_launches} (predicted {want_oracle} = "
+        f"{len(result.eager.tokens)} frames x {g} positions x {st_layers} layers); smallest "
+        f"top-two gap the oracle met "
+        f"{min(gap / max(scale, 1e-30) for gap, scale in calls):.3g} of its call's largest "
+        f"|logit|")
+    if fast_launches <= 0 or oracle_launches != want_oracle:
+        fail("parity oracle: decode attention did not launch as predicted")
+    if result.ok:
+        return
+    i = result.first_divergence
+    if i is None:  # the tokens agree and the stops differ: no tie to allow
+        fail(f"parity oracle: the traces stop differently: {lines}")
+    steps = [(i * g, "talker")] + [((i - 1) * g + k, f"sub-talker position {k}")
+                                   for k in range(1, g) if i > 0]
+    gaps = [(calls[j][0] / max(calls[j][1], 1e-30), calls[j][0], where)
+            for j, where in steps if j < len(calls)]
+    rel, gap, where = min(gaps)
+    log(f"parity oracle: first divergence at step {i}; the oracle's smallest top-two gap "
+        f"there {gap:.4g} ({where}), {rel:.3g} of its largest |logit| (near tie at most "
+        f"{ORACLE_NEAR_TIE_REL})")
+    if not rel <= ORACLE_NEAR_TIE_REL:
+        fail(f"parity oracle: the cached path and the cache-free oracle diverge at step {i}, "
+             f"not at a near tie: {lines}")
 
 
 # The sub-talker int8 KV route with its quantization flips taken out: the
@@ -3007,6 +3261,86 @@ def first_packet_split(model, prompt, params, runs: int = 5):
     return out
 
 
+# The demo's custom-voice callback (phase 9): greedy controls (top-k 1 for
+# the talker and, through the demo's CLI defaults, for the sub-talker) and a
+# few frames.
+DEMO_FRAMES = 8
+
+
+@contextlib.contextmanager
+def gradio_stand_in(callbacks: list):
+    """A ``gradio`` module of inert components whose buttons record the
+    callbacks they are given (the stand-in of tests/test_demo_build.py),
+    for ``demo.build_demo`` while gradio is not installed."""
+    import types
+
+    class Component:
+        def __init__(self, *a, **k):
+            pass
+
+    class Button(Component):
+        def click(self, fn, inputs, outputs):
+            callbacks.append(fn)
+
+    class Ctx(Component):
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    gr = types.ModuleType("gradio")
+    gr.Blocks = gr.Tab = gr.Tabs = gr.Row = gr.Column = Ctx
+    for name in ("Markdown", "Textbox", "Dropdown", "Slider", "Checkbox", "Audio", "File"):
+        setattr(gr, name, Component)
+    gr.Button = Button
+    saved = sys.modules.get("gradio")
+    sys.modules["gradio"] = gr
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["gradio"]
+        else:
+            sys.modules["gradio"] = saved
+
+
+def check_demo_callback(model, smi: str) -> None:
+    """The demo's custom-voice tab on the stream phase's model (bf16 talker
+    and codec): its callback's audio equals ``generate_custom_voice`` with
+    the same arguments, bit for bit."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch import demo
+
+    callbacks = []
+    saved = model.cfg
+    model.cfg = dataclasses.replace(saved, tts_model_type="custom_voice")
+    try:
+        with gradio_stand_in(callbacks):
+            demo.build_demo(model, {"subtalker_top_k": 1})
+        controls = (DEMO_FRAMES + 1, 0.9, 1, 1.0, 1.0)  # max_new_tokens, temp, top-k, top-p, rp
+        t0 = time.perf_counter()
+        out, status = callbacks[0](TEXTS[1], "Serena", "English", *controls)
+        ui_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wavs, sr = model.generate_custom_voice(
+            TEXTS[1], "serena", "english", max_new_tokens=DEMO_FRAMES + 1, temperature=0.9,
+            top_k=1, top_p=1.0, repetition_penalty=1.0, subtalker_top_k=1)
+        direct_s = time.perf_counter() - t0
+    finally:
+        model.cfg = saved
+    if out is None:
+        fail(f"demo: the custom-voice callback failed: {status}")
+    equal = out[0] == sr and out[1].shape == wavs[0].shape and np.array_equal(out[1], wavs[0])
+    log(f"demo: custom-voice callback under the gradio stand-in (display names 'Serena' / "
+        f"'English'), top-k 1, {DEMO_FRAMES + 1} tokens: status {status!r}, {out[1].shape[0]} "
+        f"samples at {out[0]} Hz in {ui_s:.2f} s (its capture included); the direct "
+        f"generate_custom_voice {direct_s:.2f} s; the same bits: {equal} | {smi}")
+    if not equal:
+        fail("demo: the callback's audio differs from the direct call's")
+
+
 def phase_stream(model_dir: str, smi: str):
     """``stream_custom_voice`` at the flagship dims, bf16 talker and codec,
     B=1, greedy, EOS banned: the first packet one graph replay, the later
@@ -3101,6 +3435,7 @@ def phase_stream(model_dir: str, smi: str):
         f"median (min..max) ms): prefill {_spread(split['prefill'])}, {first} frames "
         f"{_spread(split['frames'])}, codec decode of {first} frames {_spread(split['codec'])}, "
         f"total {_spread(split['total'])} | {smi}")
+    check_demo_callback(model, smi)
     log_programs("stream", smi)
     del model
     graphs.clear()
@@ -5895,6 +6230,109 @@ PARALLEL_LOSS_RTOL = 1e-5
 PARALLEL_VQ_BUFFER_REL = 1e-5
 
 
+# The tp serving engine (``continuous.ContinuousBatchingEngine`` on a tp
+# group): 3 greedy requests (EOS banned) over 2 slots, so that the third is
+# admitted into a freed slot, in segments of 2 frames. (c)'s ranks run two
+# tp-2 engines at once, f32, one per dp shard, each on its own 3 texts; (b)'s
+# child runs one on its one-rank NCCL group, bf16, through captured frames.
+ENGINE_FRAMES = (3, 4, 3)
+ENGINE_SLOTS, ENGINE_SEGMENT, ENGINE_CEILING, ENGINE_BUCKET = 2, 2, 16, 32
+
+
+def engine_requests(dp_rank: int) -> list:
+    """(text, speaker, frames) of a dp shard's engine."""
+    return [(TEXTS[(dp_rank + k) % len(TEXTS)], ("aiden", "serena")[(dp_rank + k) % 2], frames)
+            for k, frames in enumerate(ENGINE_FRAMES)]
+
+
+def sharded_model(model, shards):
+    """A ``Qwen3TTSModel`` on a rank's shards and config (``shard_params``),
+    with ``model``'s whole codec and the smoke run's tokenizer."""
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    serve = Qwen3TTSModel(dataclasses.replace(model.cfg, talker=shards.cfg), shards.talker,
+                          shards.subtalker, model.codec_params)
+    serve.tokenizer = ChatTemplateTokenizer()
+    return serve
+
+
+def serve_engine(model, requests) -> dict:
+    """The continuous engine on ``model`` (on a tp group: the leader takes
+    ``requests``, a follower runs ``follow()``): every segment's codes as
+    ``decode_segment`` returned them, the decode-attention launches, the
+    wall; the leader also each request's codes as handed to the codec, in
+    the order of ``requests``, and the frames generated; the captures."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch import continuous
+    from qwen_tts_tpu_torch.generate import GenerationParams
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+
+    segments, codes = [], {}
+    decode = continuous.decode_segment
+
+    def recording(*args, **kwargs):
+        out = decode(*args, **kwargs)
+        segments.append(out[1])
+        return out
+
+    continuous.decode_segment = recording
+    before = decode_attention.launches
+    t0 = time.perf_counter()
+    try:
+        with counting_captures() as captures:
+            engine = continuous.ContinuousBatchingEngine(
+                model, num_slots=ENGINE_SLOTS, segment_frames=ENGINE_SEGMENT,
+                max_new_tokens=ENGINE_CEILING, prefill_bucket=ENGINE_BUCKET, trailing_cap=256)
+            out = {"leader": engine.is_leader}
+            if engine.is_leader:
+                finish = engine._finish_one
+
+                def keep(req, got):
+                    codes[id(req.future)] = np.concatenate(got).tolist()
+                    return finish(req, got)
+
+                engine._finish_one = keep
+                engine.start()
+                try:
+                    futures = [engine.submit_prompt(
+                        card_prompt_in(model, text, speaker, "english"),
+                        GenerationParams(max_new_tokens=frames + 1, min_new_tokens=frames + 2,
+                                         do_sample=False, subtalker_do_sample=False,
+                                         repetition_penalty=1.0))
+                        for text, speaker, frames in requests]
+                    for f in futures:
+                        f.result(timeout=CHILD_TIMEOUT)
+                finally:
+                    engine.stop()
+                out.update(codes=[codes[id(f)] for f in futures],
+                           frames=engine.stats["frames"])
+            else:
+                engine.follow()
+            torch.cuda.synchronize()
+    finally:
+        continuous.decode_segment = decode
+    out.update(segments=[s.cpu().tolist() for s in segments], captures=captures[0],
+               launches=decode_attention.launches - before, wall=time.perf_counter() - t0)
+    return out
+
+
+def log_engine(what: str, res: dict, per_frame: int, smi: str) -> float:
+    """Log an engine run of ``serve_engine``; its frames a second."""
+    rate = res["frames"] / res["wall"]
+    want = (len(res["segments"]) * ENGINE_SEGMENT + res["captures"]) * per_frame
+    log(f"{what}: {len(ENGINE_FRAMES)} greedy requests of {list(ENGINE_FRAMES)} frames over "
+        f"{ENGINE_SLOTS} slots, segments of {ENGINE_SEGMENT}: {res['frames']} frames in "
+        f"{res['wall']:.2f} s ({rate:.2f} frames/s, the engine's construction and captures "
+        f"included), {len(res['segments'])} segments, {res['captures']} capture(s), "
+        f"decode-attention launches {res['launches']} (predicted {want} = (segments x "
+        f"{ENGINE_SEGMENT} frames + one warm-up frame a capture) x {per_frame}) | {smi}")
+    if res["launches"] != want:
+        fail(f"{what}: decode attention did not launch as predicted")
+    return rate
+
+
 def frame_collectives(cfg) -> int:
     """All-reduces a decode frame issues over its tp group, from the code:
     two a trunk layer (after o and after down) for every talker layer and
@@ -6023,9 +6461,10 @@ def child_nccl(rank: int, world: int, work: str, model_dir: str, marks: str) -> 
     """Phase 16 (b): a one-rank NCCL group, tp 1, the bf16 path through the
     captured frames: the codes with and without the group, ms a frame with
     and without, then the kernels of a profiled replayed frame with the
-    all-reduces as sums (the path's) and as averages (the probe). Loads
-    after the mark "go", times its frames after "quiet" and leaves "timed"
-    (see ``phase_parallel``)."""
+    all-reduces as sums (the path's) and as averages (the probe), then the
+    tp serving engine with and without the group. Loads after the mark
+    "go", times its frames after "quiet" and leaves "timed" (see
+    ``phase_parallel``)."""
     import torch
     import torch.distributed as dist
 
@@ -6126,13 +6565,20 @@ def child_nccl(rank: int, world: int, work: str, model_dir: str, marks: str) -> 
     finally:
         dist.all_reduce = sum_all_reduce
     stamps.append(("profiles", time.perf_counter()))
+    # The tp engine on the group, then on the unsharded model (beside the
+    # four ranks' work: its frames a second are those of a shared card).
+    serve = sharded_model(model, shards)
+    engines = {"group": serve_engine(serve, engine_requests(0)),
+               "no group": serve_engine(model, engine_requests(0))}
+    del serve
+    stamps.append(("engines", time.perf_counter()))
     dist.destroy_process_group()
     return {"equal": bool(torch.equal(got["group"], got["no group"])),
             "repeat_equal": bool(torch.equal(got2, got["group"])),
             "probe_equal": bool(torch.equal(probe_codes, got["no group"])),
             "backend": str(backend), "codes_shape": list(got["group"].shape),
             "captured_calls": captured_calls, "summed": summed, "averaged": averaged_kernels,
-            "retaken": retaken,
+            "retaken": retaken, "engines": engines,
             "ms": ms, "seconds": {b[0]: round(b[1] - a[1], 2) for a, b in zip(stamps, stamps[1:])}}
 
 
@@ -6168,7 +6614,9 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
                                           load_tokenizer=False)
     inputs = _parallel_prompts(model, TEXTS, ["aiden", "serena", "aiden", "serena"])
     shards = shard_params(mesh, model.talker_params, model.subtalker_params, model.cfg.talker)
+    serve = sharded_model(model, shards)
     del model
+    place = mesh_place(mesh)
     rows = [shard_rows(mesh, x) for x in inputs]
     sampling, st_sampling = _greedy_banned(DP_TP_FRAMES)
     decode_attention.launches = 0
@@ -6191,9 +6639,12 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
              shards.cfg.code_predictor.num_attention_heads,
              shards.cfg.code_predictor.num_key_value_heads]
     del shards, rows
+    t_engine = time.perf_counter()
+    engine = serve_engine(serve, engine_requests(place.dp_rank))
+    engine_s = time.perf_counter() - t_engine
+    del serve
 
     warm.join()
-    place = mesh_place(mesh)
     cfg, state, params, x = vq_inputs(vq_seed)
     step = make_sharded_vq_train_step(place.dp_group, cfg)
     n = x.shape[0] // place.dp_size
@@ -6206,7 +6657,7 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
     torch.cuda.empty_cache()
 
     t3 = time.perf_counter()
-    vq_s = t3 - t2 - decode_s
+    vq_s = t3 - t2 - decode_s - engine_s
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
         rc = sft_12hz.train(sft_12hz.parse_args(sft_argv))
@@ -6215,7 +6666,8 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
     return {"codes": out.codes.cpu().tolist(), "launches": launches, "backend": str(backend),
             "heads": heads, "dp_rank": place.dp_rank, "tp_rank": place.tp_rank,
             "wait_s": t1 - t0, "setup_s": t_load - t1, "wait_timed_s": t2 - t_load,
-            "decode_s": decode_s, "vq_s": vq_s, "sft_rc": rc,
+            "decode_s": decode_s, "vq_s": vq_s, "sft_rc": rc, "engine": engine,
+            "engine_s": engine_s,
             "sft_lines": printed.getvalue().splitlines(), "sft_s": sft_s,
             "end": time.time()}
 
@@ -6409,6 +6861,19 @@ def check_nccl_one_rank(model_dir: str, child, smi: str) -> None:
     if added != per_frame:
         fail(f"parallel NCCL: the frame of averages ran {added} device events more than the "
              f"frame of sums, {per_frame} collectives captured in it")
+    engines = res["engines"]
+    launches_per_frame = (cfg.num_hidden_layers
+                          + cfg.num_code_groups * cfg.code_predictor.num_hidden_layers)
+    for name in ("group", "no group"):
+        log_engine(f"parallel NCCL engine [{name}] (beside (c)'s ranks)", engines[name],
+                   launches_per_frame, smi)
+    equal = engines["group"]["codes"] == engines["no group"]["codes"]
+    log(f"parallel NCCL engine: the engine on the one-rank NCCL group (its own leader, no "
+        f"followers, bf16, captured frames) gives the unsharded engine's codes: {equal} "
+        f"({[len(c) for c in engines['group']['codes']]} frames)")
+    if not equal or not all(len(c) == f for c, f in zip(engines["group"]["codes"],
+                                                        ENGINE_FRAMES)):
+        fail("parallel NCCL engine: its codes differ from the unsharded engine's")
 
 
 def _batch_margin(model, inputs, frames, row, frame, group):
@@ -6488,12 +6953,16 @@ def dp_tp_reference(model_dir: str) -> dict:
     ref = generate_codes(model.talker_params, model.subtalker_params, model.cfg.talker,
                          *inputs, sampling=sampling, st_sampling=st_sampling,
                          max_new_tokens=DP_TP_FRAMES, generator=None)
+    t0 = time.perf_counter()
+    engines = [serve_engine(model, engine_requests(d)) for d in range(2)]
+    engines_s = time.perf_counter() - t0
     cfg, state, params, x = vq_inputs(DP_TP_VQ_SEED)
     with step_mode(x.device):
         vq_state, vq = vq_train_step(
             state, params, x, torch.Generator(device="cuda").manual_seed(DP_TP_VQ_SEED), cfg=cfg)
     return {"model": model, "inputs": inputs, "codes": ref.codes.cpu().numpy(),
-            "vq_state": vq_state, "vq_indices": vq.indices.cpu()}
+            "vq_state": vq_state, "vq_indices": vq.indices.cpu(), "engines": engines,
+            "engines_s": engines_s}
 
 
 def check_dp_tp(ref: dict, res: list, work: str, wall: float, smi: str) -> int:
@@ -6565,6 +7034,57 @@ def check_dp_tp(ref: dict, res: list, work: str, wall: float, smi: str) -> int:
     if agree != 1.0 or not worst <= PARALLEL_VQ_BUFFER_REL or not same_ranks:
         fail("parallel VQ: the dp step differs from the full-batch step")
     return launches[0]
+
+
+def check_tp_engines(ref: dict, res: list, smi: str) -> None:
+    """Phase 16 (c)'s tp engines: each dp shard's leader (tp rank 0) against
+    the unsharded f32 engine on this process at the same settings (equal,
+    or first apart at a near tie as in ``check_dp_tp``), each follower's
+    segments against its leader's."""
+    import numpy as np
+
+    model = ref["model"]
+    tk = model.cfg.talker
+    per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
+    for d, want in enumerate(ref["engines"]):
+        log_engine(f"parallel engine unsharded f32 (dp shard {d}'s requests)", want, per_frame,
+                   smi)
+    for r in res:
+        r["engine"]["rank"] = r["dp_rank"], r["tp_rank"]
+    for d in range(2):
+        leader, follower = (next(r["engine"] for r in res
+                                 if r["dp_rank"] == d and r["tp_rank"] == t) for t in (0, 1))
+        want = ref["engines"][d]
+        rate = log_engine(f"parallel tp engine, dp shard {d}, tp 2 over gloo (leader)", leader,
+                          per_frame, smi)
+        ties = []
+        for k, ((text, speaker, frames), got, exp) in enumerate(zip(
+                engine_requests(d), leader["codes"], want["codes"])):
+            got, exp = np.asarray(got), np.asarray(exp)
+            if got.shape != (frames, tk.num_code_groups):
+                fail(f"parallel tp engine: dp shard {d}'s request {k} gave codes {got.shape}")
+            if np.array_equal(got, exp):
+                continue
+            f, g = (int(v) for v in np.argwhere(got != exp)[0])
+            inputs = _parallel_prompts(model, [text], [speaker])
+            margin, scale = _batch_margin(model, inputs, frames + 1, 0, f, g)
+            ties.append((k, f, g, round(margin, 6), round(scale, 3)))
+            if not margin <= SERVING_NEAR_TIE * scale:
+                fail(f"parallel tp engine: dp shard {d}'s request {k} first differs from the "
+                     f"unsharded engine at frame {f}, group {g}, not a near tie (margin "
+                     f"{margin:.4g}, limit {SERVING_NEAR_TIE} x {scale:.4g})")
+        same = follower["segments"] == leader["segments"]
+        log(f"parallel tp engine, dp shard {d}: the leader's codes against the unsharded "
+            f"engine's {'equal' if not ties else f'first apart at near ties (request, frame, group, margin, max|logit|) {ties}'}; "
+            f"the follower's {len(follower['segments'])} segments equal the leader's "
+            f"{len(leader['segments'])}: {same}; follower launches {follower['launches']}, "
+            f"wall {follower['wall']:.2f} s; leader {rate:.2f} frames/s beside the other "
+            f"dp shard's engine | {smi}")
+        if not same or follower["launches"] != leader["launches"]:
+            fail(f"parallel tp engine: dp shard {d}'s follower ran other segments than its "
+                 f"leader")
+    log(f"parallel tp engines: the ranks' engine seconds {[round(r['engine_s'], 1) for r in res]}"
+        f"; the unsharded reference engines {ref['engines_s']:.1f} s | {smi}")
 
 
 def cut_checkpoint(base_dir: str, cut_dir: str, layers: int) -> None:
@@ -6699,6 +7219,7 @@ def phase_parallel(model_dir: str, base_dir: str, smi: str) -> dict:
             dp_tp = check_dp_tp(ref, res, work, max(r["end"] for r in res) - t0, smi)
         finally:
             shutil.rmtree(work, ignore_errors=True)
+        check_tp_engines(ref, res, smi)
         check_parallel_sft(sft, res, smi)
         timed("parallel NCCL", check_nccl_one_rank, model_dir, nccl, smi)
     finally:

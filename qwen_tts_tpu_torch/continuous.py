@@ -23,11 +23,47 @@ against the largest bucket, trailing text against ``trailing_cap``, the
 budget against the ceiling) raise in the caller's thread. A request that
 fails inside the worker resolves its own future with the exception; the
 other slots keep running.
+
+**Tensor parallelism.** With a model whose talker config holds a
+``Placement`` (``parallel/mesh.py``: each rank's shards and config, the
+codec whole on every rank) the engine runs on a tp group of processes. The
+JAX engine runs unchanged on sharded weights because SPMD carries the
+shardings; here each rank is a process of its own whose trunk runs the tp
+collectives (``parallel/comm.py``), so every rank of the group must make the
+same device calls in the same order. The engine's device calls are the
+admission (``init_decode`` + ``_insert_slot``), the write of an aborted
+slot's limit and the segment (``decode_segment``); the group is read from
+the placements in ``model.cfg.talker`` (``generate.tp_groups``) and the
+constructor takes nothing new:
+
+* tp rank 0 is the **leader**: it alone has the queue, the futures, the
+  deadlines, cancellation, the reads of the segments' results and the codec
+  (finishes and streamed chunks). Before each device call it broadcasts one
+  command naming the call and its host inputs (the slot; the prompt's
+  tensors on the CPU; the request's ``GenerationParams``, seed included),
+  then makes the call. Every decision that depends on time or on a host
+  event (admission order, the slot, cancels, expired deadlines) is made
+  once, there, and reaches the others as a command, so their per-request
+  generator indices advance as the leader's do. A request refused on the
+  host (a prompt over the largest bucket, ...) is refused before any
+  broadcast.
+* every other rank is a **follower**: ``follow()`` replays the commands on
+  its own pool, in order, until the leader's ``stop()``.
+* commands travel over a gloo group of the tp ranks made for the engine
+  (``COMMAND_TIMEOUT``), so object broadcasts never pass through NCCL or the
+  card.
+
+A gloo tp group runs the frames eagerly (``generate._decode``); an NCCL one
+captures them with their collectives. With no placement, or a tp group of
+one rank, the engine is its own leader and broadcasts nothing. Under a
+dp x tp mesh each tp group serves on its own; the dp rank's share of each
+draw (``ops/sampling.draw_rows``) feeds its sampled rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import datetime
 import os
 import queue
 import threading
@@ -37,6 +73,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from qwen_tts_tpu_torch import graphs
 from qwen_tts_tpu_torch.generate import (
@@ -49,6 +86,7 @@ from qwen_tts_tpu_torch.generate import (
     decode_segment,
     icl_ref_codes,
     init_decode,
+    tp_groups,
 )
 from qwen_tts_tpu_torch.models.talker import alloc_kv_cache
 from qwen_tts_tpu_torch.ops.sampling import SamplingConfig
@@ -91,6 +129,29 @@ def _insert_slot(
     st_vec.set_rows(slot, sub_st_vec)
 
 
+# A follower waits at most this long for the leader's next command (the
+# command group's own timeout, after which ``follow()`` raises). An idle
+# leader sends a heartbeat at least every IDLE_WAIT_S seconds, so only a
+# leader that died or hangs runs it out.
+COMMAND_TIMEOUT = datetime.timedelta(seconds=120)
+IDLE_WAIT_S = 1.0
+
+
+def _command_channel(talker_cfg):
+    """(gloo group of the tp ranks, the leader's global rank, whether this
+    rank leads) for the tp group of the talker's placement, or of the
+    sub-talker's where only it is split; None with no placement or a tp
+    group of one rank. Only the tp group's ranks make the group
+    (``use_local_synchronization``), so several tp groups each make their own
+    at once."""
+    group = next((g for g in tp_groups(talker_cfg) if g is not None), None)
+    if group is None or group.size() == 1:
+        return None
+    channel = dist.new_group(dist.get_process_group_ranks(group), backend="gloo",
+                             timeout=COMMAND_TIMEOUT, use_local_synchronization=True)
+    return channel, dist.get_global_rank(group, 0), group.rank() == 0
+
+
 def _request_generator(device, seed: int, n: int) -> torch.Generator:
     """The generator of a request's token 0: seeded from (seed, n), the
     counterpart of the JAX package's ``fold_in(PRNGKey(seed), n)``."""
@@ -120,7 +181,8 @@ class _SlotRequest:
 
 class ContinuousBatchingEngine:
     """Continuous-batching TTS serving engine over a fixed slot pool, on the
-    model's device."""
+    model's device; on a tp group, the leader (tp rank 0) serves and every
+    other rank runs ``follow()`` (module docstring)."""
 
     def __init__(
         self,
@@ -163,6 +225,8 @@ class ContinuousBatchingEngine:
                       # admitted again) before they were read: dropped by
                       # the identity check in _process_segment.
                       "stale_skips": 0,
+                      # Admissions that raised (on a follower, its replays).
+                      "failed_admits": 0,
                       "bucket_admits": {b: 0 for b in self.prefill_buckets},
                       # Host seconds per loop phase: admit = prefill + slot
                       # insertion; segment = dispatch + reading results;
@@ -216,10 +280,16 @@ class ContinuousBatchingEngine:
         self._inflight = None
         self._running = False
         self._worker = threading.Thread(target=self._run, daemon=True)
+        channel = _command_channel(model.cfg.talker)
+        self._channel, self._leader_rank, self.is_leader = (
+            channel if channel is not None else (None, None, True))
+        self._channel_failed = False
 
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "ContinuousBatchingEngine":
+        if not self.is_leader:
+            raise RuntimeError("a follower rank serves through follow(), not start()")
         self._running = True
         self._worker.start()
         return self
@@ -234,6 +304,8 @@ class ContinuousBatchingEngine:
     def submit_prompt(self, prompt: Prompt, params: GenerationParams,
                       stream_callback=None, ref_codes=None,
                       timeout_s: Optional[float] = None) -> "Future[np.ndarray]":
+        if not self.is_leader:
+            raise RuntimeError("requests go to the tp group's leader (tp rank 0)")
         if prompt.embeds.shape[0] > self.prefill_bucket:
             raise ValueError(
                 f"prompt length {prompt.embeds.shape[0]} exceeds the engine's "
@@ -289,16 +361,73 @@ class ContinuousBatchingEngine:
         return self.submit_prompt(prompt, params, stream_callback=stream_callback,
                                   ref_codes=ref_codes, timeout_s=timeout_s)
 
+    # -- the tp group ------------------------------------------------------
+
+    def _tell(self, command: tuple) -> None:
+        """Leader: broadcast ``command`` to the followers before the device
+        call it names (nothing without followers). After a failed broadcast
+        the channel counts as gone and later ones are skipped, so that the
+        shutdown drain still resolves every future."""
+        if self._channel is None or self._channel_failed:
+            return
+        try:
+            dist.broadcast_object_list([command], src=self._leader_rank, group=self._channel)
+        except Exception:
+            self._channel_failed = True
+            raise
+
+    def follow(self) -> None:
+        """Follower: replay the leader's commands on this rank's pool until
+        the leader's ``stop()``. Each wait for a command is bounded by the
+        command group's own timeout (``COMMAND_TIMEOUT``): the leader sends a
+        heartbeat at least every ``IDLE_WAIT_S`` seconds while idle, so the
+        wait runs out only when it died or hangs, and ``follow()`` then
+        raises. An admission that raises here raises on the leader too (the
+        same inputs reach the same ops, and so the same collectives, on every
+        rank); the leader resolves that request's future with it and the
+        follower goes on, as tests/test_torch_continuous_tp.py checks with a
+        prompt of the wrong width."""
+        if self.is_leader:
+            raise RuntimeError("the leader serves through start(); follow() is a follower's")
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=self._leader_rank, group=self._channel)
+            command = box[0]
+            if command[0] == "stop":
+                return
+            with graphs.device_lock:
+                if command[0] == "admit":
+                    _, slot, prompt, params = command
+                    try:
+                        self._admit_rows(slot, Prompt(*(t.to(self.device) for t in prompt)),
+                                         params)
+                    except Exception:  # the leader resolves the request with it
+                        self.stats["failed_admits"] += 1
+                elif command[0] == "limit":
+                    self._limits[command[1]] = 0
+                elif command[0] == "segment":
+                    self._segment()
+
     # -- internals ---------------------------------------------------------
 
     def _admit(self, slot: int, req: _SlotRequest) -> None:
-        params = req.params
+        self._tell(("admit", slot, Prompt(*(t.cpu() for t in req.prompt)), req.params))
+        self._admit_rows(slot, req.prompt, req.params)
+        self._slot_req[slot] = req
+        self._host_gen[slot] = 0  # a fresh prefill: no frame generated yet
+        self._host_limits[slot] = min(req.params.max_new_tokens, self.max_new_tokens)
+        self._slot_codes[slot] = [req.ref_codes] if req.ref_codes is not None else []
+        req.emitted_frames = req.ref_frames
+
+    def _admit_rows(self, slot: int, prompt: Prompt, params: GenerationParams) -> None:
+        """The admission's device work, on every rank: the prefill at batch
+        1 and the slot's row of the pool."""
         # The smallest bucket the prompt fits (submit_prompt checked the largest).
-        plen = req.prompt.embeds.shape[0]
+        plen = prompt.embeds.shape[0]
         bucket = next(b for b in self.prefill_buckets if plen <= b)
         self.stats["bucket_admits"][bucket] += 1
         model = self.model
-        embeds, mask, trailing, _ = batch_prompts([req.prompt], bucket=bucket)
+        embeds, mask, trailing, _ = batch_prompts([prompt], bucket=bucket)
         dtype = model.talker_params["norm"].dtype
         sub = init_decode(
             model.talker_params, model.cfg.talker, embeds.to(dtype), mask,
@@ -314,11 +443,6 @@ class ContinuousBatchingEngine:
                      sub, trailing[0].to(dtype), limit,
                      VecSampling.host_row(params.talker_sampling()),
                      VecSampling.host_row(params.subtalker_sampling()))
-        self._slot_req[slot] = req
-        self._host_gen[slot] = 0  # a fresh prefill: no frame generated yet
-        self._host_limits[slot] = limit
-        self._slot_codes[slot] = [req.ref_codes] if req.ref_codes is not None else []
-        req.emitted_frames = req.ref_frames
         self.stats["requests"] += 1
 
     def _stream_emit(self, req: _SlotRequest, codes, done: bool) -> None:
@@ -351,7 +475,6 @@ class ContinuousBatchingEngine:
         ``exc``. The other slots are untouched."""
         req = self._slot_req.pop(slot)
         self._slot_codes.pop(slot, None)
-        self._limits[slot] = 0
         self._host_limits[slot] = 0
         self._req_by_future.pop(id(req.future), None)
         if req.stream_callback is not None:
@@ -361,6 +484,8 @@ class ContinuousBatchingEngine:
                 pass
         if not req.future.done():
             req.future.set_exception(exc)
+        self._tell(("limit", slot))
+        self._limits[slot] = 0
 
     def _finish_one(self, req: _SlotRequest, codes) -> None:
         """Resolve a finished request from the captured (req, codes): its
@@ -425,6 +550,10 @@ class ContinuousBatchingEngine:
                 self._req_by_future.pop(id(req.future), None)
                 if not req.future.done():
                     req.future.set_exception(CancelledError("engine stopped"))
+            try:
+                self._tell(("stop",))
+            except Exception:
+                pass
 
     def _run_loop(self):
         while self._running:
@@ -434,7 +563,7 @@ class ContinuousBatchingEngine:
             block = len(free) == self.num_slots and self._inflight is None
             while free:
                 try:
-                    req = self._queue.get(block=block, timeout=1.0 if block else 0)
+                    req = self._queue.get(block=block, timeout=IDLE_WAIT_S if block else 0)
                 except queue.Empty:
                     break
                 if req is None:
@@ -452,6 +581,7 @@ class ContinuousBatchingEngine:
                     self.stats["time_admit_s"] += time.perf_counter() - t0
                 except Exception as exc:
                     # A poisoned request resolves its own future; serving goes on.
+                    self.stats["failed_admits"] += 1
                     self._req_by_future.pop(id(req.future), None)
                     if not req.future.done():
                         req.future.set_exception(exc)
@@ -467,6 +597,7 @@ class ContinuousBatchingEngine:
                             "request exceeded its deadline (timeout_s) after "
                             f"{frames} generated frames"))
             if not self._slot_req and self._inflight is None:
+                self._tell(("idle",))  # the followers' heartbeat
                 continue
 
             # Double-buffered dispatch: queue the next segment, then read the
@@ -477,18 +608,9 @@ class ContinuousBatchingEngine:
             dispatched = None
             if self._slot_req:
                 t_seg = time.perf_counter()
+                self._tell(("segment",))
                 with graphs.device_lock:
-                    # with_report: this segment's num_gen and eos, in tensors
-                    # that the next segment's replays do not overwrite.
-                    self._state, seg_codes, report = decode_segment(
-                        self.model.talker_params, self.model.subtalker_params,
-                        self.model.cfg.talker, self._state, self._trailing,
-                        sampling=self._static_sampling[0],
-                        st_sampling=self._static_sampling[1],
-                        segment=self.segment_frames, step_limit=self._limits,
-                        vec_sampling=self._vec, st_vec_sampling=self._st_vec,
-                        with_report=True,
-                    )
+                    seg_codes, report = self._segment()
                 # Who took part, by identity: when this segment is read, a
                 # slot may hold another request.
                 dispatched = (dict(self._slot_req), report[0], report[1], seg_codes)
@@ -506,6 +628,19 @@ class ContinuousBatchingEngine:
                     self._process_segment(self._inflight)
                 self.stats["time_segment_s"] += time.perf_counter() - t_seg
             self._inflight = dispatched
+
+    def _segment(self):
+        """One segment over every slot, on every rank: (codes, report)."""
+        # with_report: this segment's num_gen and eos, in tensors that the
+        # next segment's replays do not overwrite.
+        self._state, seg_codes, report = decode_segment(
+            self.model.talker_params, self.model.subtalker_params,
+            self.model.cfg.talker, self._state, self._trailing,
+            sampling=self._static_sampling[0], st_sampling=self._static_sampling[1],
+            segment=self.segment_frames, step_limit=self._limits,
+            vec_sampling=self._vec, st_vec_sampling=self._st_vec, with_report=True,
+        )
+        return seg_codes, report
 
     def _process_segment(self, inflight) -> None:
         """Read one dispatched segment's results and keep the books."""

@@ -1,11 +1,12 @@
-"""Device selection for the port's entry points, f32 without TF32, and the
-random initialisers' normal draw."""
+"""Device selection for the port's entry points, f32 without TF32, the
+profiler trace, and the random initialisers' normal draw."""
 
 from __future__ import annotations
 
 import contextlib
 import math
-from typing import Iterator, Union
+import os
+from typing import Iterator, Optional, Union
 
 import torch
 
@@ -37,6 +38,30 @@ def full_f32() -> Iterator[None]:
             yield
     finally:
         matmul.allow_tf32 = before
+
+
+def profile_trace(trace_dir: Optional[str]):
+    """Context manager: a ``torch.profiler.profile`` whose trace is written
+    into ``trace_dir`` on exit, as a Chrome trace (``*.pt.trace.json``)
+    through ``tensorboard_trace_handler``, which TensorBoard's profiler
+    plugin and ``chrome://tracing`` / Perfetto read. No-op
+    (``contextlib.nullcontext()``) when ``trace_dir`` is falsy.
+
+    It records CPU activity always and CUDA activity when a card is present.
+    On the card the trace holds every kernel by name with its device start
+    and duration (a replayed CUDA graph's kernels one by one), the host's
+    launch calls and the torch operators that issued them; on the CPU it
+    holds the torch operators and their host times only. ``as`` gives the
+    profiler, so ``key_averages()`` reads the same events."""
+    if not trace_dir:
+        return contextlib.nullcontext()
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    os.makedirs(trace_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities, on_trace_ready=tensorboard_trace_handler(trace_dir))
 
 
 def normal_init(shape, fan_in, generator: torch.Generator, dtype=torch.float32,

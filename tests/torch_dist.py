@@ -169,3 +169,101 @@ def train_and_vq(sft: dict, vq: list):
     """``train_steps(**sft)`` and ``vq_steps(**run)`` for each run of
     ``vq``, in one group."""
     return train_steps(**sft), [vq_steps(**run) for run in vq]
+
+
+def tp_engine(cfg, talker, subtalker, codec, requests, wait):
+    """``ContinuousBatchingEngine`` on a tp group of the world's ranks (f32
+    on the CPU): tp rank 0 leads and takes ``requests`` in turn, every other
+    rank runs ``follow()``. Each request is (name, ids, params, what):
+    ``what`` "wait" submits and waits for the result, "batch" submits without
+    waiting (the next "wait" waits for every pending one), "cancel" submits,
+    waits for a segment that holds it and cancels it, "poison" submits a
+    prompt one hidden unit too wide, "oversize" a prompt over the largest
+    bucket. Every rank records each segment's frame budgets (as
+    ``decode_segment`` was given them) and codes; the leader also the
+    commands it broadcast, what it handed the codec, each result or error,
+    and when it called ``stop()``; a follower when ``follow()`` returned."""
+    import dataclasses
+    import time
+
+    import numpy as np
+
+    from qwen_tts_tpu_torch import continuous
+    from qwen_tts_tpu_torch.generate import Prompt, build_prompt
+    from qwen_tts_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    mesh = make_mesh(tp=torch.distributed.get_world_size())
+    shards = shard_params(mesh, talker, subtalker, cfg.talker)
+    model = Qwen3TTSModel(dataclasses.replace(cfg, talker=shards.cfg), shards.talker,
+                          shards.subtalker, codec)
+    segments, commands, decoded = [], [], []
+    segment = continuous.decode_segment
+
+    def recording(*args, step_limit, **kw):
+        limits = step_limit.clone()
+        state, codes, report = segment(*args, step_limit=step_limit, **kw)
+        segments.append((limits, codes.clone()))
+        return state, codes, report
+
+    continuous.decode_segment = recording
+    engine = continuous.ContinuousBatchingEngine(
+        model, num_slots=2, segment_frames=2, max_new_tokens=16, prefill_bucket=32,
+        trailing_cap=32)
+    out = {"leader": engine.is_leader, "segments": segments}
+    if not engine.is_leader:
+        engine.follow()
+        out["returned"] = time.time()
+        out["failed_admits"] = engine.stats["failed_admits"]
+        return out
+
+    tell = engine._tell
+    engine._tell = lambda command: (commands.append(command[0]), tell(command))[1]
+    decode = model.decode_codes
+    model.decode_codes = lambda codes, **kw: (
+        decoded.extend(np.asarray(c).copy() for c in codes), decode(codes, **kw))[1]
+    results, pending = {}, {}
+
+    def prompt_of(ids, width=0):
+        p = build_prompt(model.talker_params, model.cfg, np.asarray(ids), language="english",
+                         speaker="aiden")
+        return Prompt(*(torch.nn.functional.pad(t, (0, width)) for t in p)) if width else p
+
+    engine.start()
+    try:
+        for name, ids, params, what in requests:
+            if what == "oversize":
+                try:
+                    p = prompt_of(ids)
+                    engine.submit_prompt(p._replace(embeds=p.embeds.repeat(4, 1)), params)
+                    results[name] = "accepted"
+                except ValueError as exc:
+                    results[name] = f"refused: {exc}"
+                continue
+            fut = engine.submit_prompt(prompt_of(ids, 1 if what == "poison" else 0), params)
+            pending[name] = fut
+            if what == "cancel":
+                req = engine._req_by_future[id(fut)]
+                deadline = time.monotonic() + wait
+                while not any(r is req for r in engine._slot_req.values()):
+                    assert time.monotonic() < deadline, "the request was never admitted"
+                    time.sleep(0.002)
+                seen = engine.stats["segments"]
+                while engine.stats["segments"] < seen + 1:
+                    assert time.monotonic() < deadline, "no segment ran"
+                    time.sleep(0.002)
+                engine.cancel(fut)
+            if what == "batch":
+                continue
+            for key, f in pending.items():
+                try:
+                    results[key] = f.result(timeout=wait)
+                except Exception as exc:  # recorded for the test
+                    results[key] = f"{type(exc).__name__}: {exc}"
+            pending.clear()
+    finally:
+        out["stop"] = time.time()
+        engine.stop()
+    out.update(results=results, commands=commands, decoded=decoded,
+               requests=engine.stats["requests"], failed_admits=engine.stats["failed_admits"])
+    return out
