@@ -312,12 +312,20 @@ CLONE_CODE_AGREEMENT = 0.99
 CLONE_NEAR_TIE_REL = 1e-5
 
 
+_STARTED = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` on stdout after the process's seconds so far (where a run's
+    time goes)."""
+    print(f"[{time.perf_counter() - _STARTED:7.1f} s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
+    """Logs ``msg`` as the run's failure, on stdout and on stderr (whose end a
+    caller that keeps only that still sees), and exits 1."""
     log(f"FAIL: {msg}")
+    print(f"FAIL: {msg[-4000:]}", file=sys.stderr, flush=True)
     sys.exit(1)
 
 
@@ -2461,7 +2469,7 @@ def phase_path(model_dir: str, smi: str, serving: bool = False):
     # Graph against eager, in turns: the decode loop, then the whole call.
     loops = graph_vs_eager(lambda: model.generate_codes_from_prompts(prompts, params)[0])
     calls = graph_vs_eager(lambda: model.generate_custom_voice(TEXTS, speakers, languages,
-                                                               **kw)[0])
+                                                               **kw)[0], runs=1)
     for side in ("graph", "eager"):
         ms = [w / MAX_NEW * 1e3 for w in loops[side]["wall"]]
         rtf = [audio_s / w for w in calls[side]["wall"]]
@@ -2581,20 +2589,23 @@ def trace_kernel_count(trace_dir: str, name: str) -> tuple:
     return files, n
 
 
+TRACE_ATTEMPTS = 5  # traces of a segment taken before a lossy profiler fails the phase
+
+
 def traced_segment(model, inputs, params, frames: int, name: str):
     """The replayed segment under ``utils.profile_trace``: the written trace
     must hold exactly as many decode-attention launches (float and int8
     cache) as their wrappers counted in the segment (captured launches x
     replays). The card machine's profiler has lost device events in full
-    runs, so a trace that holds fewer is taken again, up to three times in
-    all; none holding them all fails the phase. Returns (state, buffer,
+    runs, so a trace that holds fewer is taken again, up to TRACE_ATTEMPTS
+    times in all; none holding them all fails the phase. Returns (state, buffer,
     wall, profiler) as ``_segment``."""
     from qwen_tts_tpu_torch.ops.cuda.decode_attention import (
         decode_attention, decode_attention_int8)
     from qwen_tts_tpu_torch.utils import profile_trace
 
     seen = []
-    for attempt in range(3):
+    for attempt in range(TRACE_ATTEMPTS):
         trace_dir = tempfile.mkdtemp(prefix="qtts_trace_")
         t0 = time.perf_counter()
         try:
@@ -2617,17 +2628,20 @@ def traced_segment(model, inputs, params, frames: int, name: str):
                 f"counted by the wrappers in the segment {counted} ({frames} frames); traces "
                 f"taken {attempt + 1} ({seen})")
             return out
-    fail(f"{name} trace: no trace of three held the segment's counted decode-attention "
-         f"launches (traced of counted: {seen})")
+    fail(f"{name} trace: no trace of {TRACE_ATTEMPTS} held the segment's counted "
+         f"decode-attention launches (traced of counted: {seen})")
 
 
-def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) -> None:
+def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16,
+                   eager_frames: int = 2) -> None:
     """Where a decode segment's time goes: torch.profiler over ``frames``
-    frames at the path's shapes (the prefill before them, outside the
-    profile), replayed and eager: device busy time by kernel against the
-    host's wall time, and the host calls that start device work. The
-    replayed segment runs under ``utils.profile_trace`` (``traced_segment``:
-    its trace holds the counted decode-attention launches)."""
+    replayed frames and ``eager_frames`` eager ones at the path's shapes
+    (the prefill before them, outside the profile): device busy time by
+    kernel against the host's wall time, and the host calls that start
+    device work (per frame; the eager side is shorter because its profile
+    records ~100 times the host events a frame). The replayed segment runs
+    under ``utils.profile_trace`` (``traced_segment``: its trace holds the
+    counted decode-attention launches)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2639,10 +2653,12 @@ def profile_decode(model, prompts, kw, smi: str, name: str, frames: int = 16) ->
     e, m, t, _ = batch_prompts(prompts)
     inputs = (e.to(dtype), m, t.to(dtype))
     walls = {"graph": [], "eager": []}
+    n = {"graph": frames, "eager": eager_frames}
     for i in range(6):  # unprofiled, in turns: graph, eager, eager, graph, ...
         side = "graph" if i % 4 in (0, 3) else "eager"
-        walls[side].append(_segment(model, inputs, params, side == "eager", frames=frames)[2])
+        walls[side].append(_segment(model, inputs, params, side == "eager", frames=n[side])[2])
     for side in ("graph", "eager"):
+        frames = n[side]
         if side == "graph":
             _, _, wall, prof = traced_segment(model, inputs, params, frames, name)
         else:
@@ -3422,7 +3438,7 @@ def phase_stream(model_dir: str, smi: str):
         fail("streamed codes differ from the one-shot codes")
 
     # Graph against eager, in turns, and the eager first packet stage by stage.
-    runs = graph_vs_eager(lambda: _stream_once(model, kw, text, speaker, language)[:3])
+    runs = graph_vs_eager(lambda: _stream_once(model, kw, text, speaker, language)[:3], runs=1)
     for side, r in runs.items():
         firsts = [x[0] * 1e3 for x in r["result"]]
         rtf = [x[2] / x[1] for x in r["result"]]
@@ -4350,6 +4366,11 @@ def stream_once(port: int, body: dict):
     return t_first, pcm
 
 
+# The request that /clone_voice must be taken beside: long enough (~4 s of
+# decode on the card) that the clone (~1 s) ends well inside it on a slow host.
+HTTP_LONG_FRAMES = 256
+
+
 def phase_serving_http(model, base_dir: str, smi: str) -> None:
     """/healthz, /tts, /stream (first chunk, median of 3) over a continuous
     engine on the serving model; then, on the Base checkpoint, a
@@ -4390,13 +4411,16 @@ def phase_serving_http(model, base_dir: str, smi: str) -> None:
     base.tokenizer = ChatTemplateTokenizer()
     engine = ContinuousBatchingEngine(base, num_slots=SERVING_SLOTS,
                                       segment_frames=SERVING_SEGMENT,
-                                      max_new_tokens=SERVING_CEILING, prefill_bucket=(32, 96))
+                                      max_new_tokens=HTTP_LONG_FRAMES, prefill_bucket=(32, 96))
     clip, rate = clone_clips()[0]
-    long_done, long_body = threading.Event(), []
+    long_done, long_body, long_s = threading.Event(), [], []
     with counting_captures() as captures, http_server(engine, base) as port:
         def long_request():
-            long_body.append(_post_json(port, "/tts", dict(tts, text=TEXTS[3],
-                                                           max_new_tokens=SERVING_CEILING)))
+            t = time.perf_counter()
+            long_body.append(_post_json(port, "/tts", dict(
+                tts, text=TEXTS[3], max_new_tokens=HTTP_LONG_FRAMES,
+                min_new_tokens=HTTP_LONG_FRAMES + 1)))
+            long_s.append(time.perf_counter() - t)
             long_done.set()
 
         thread = threading.Thread(target=long_request)
@@ -4419,12 +4443,13 @@ def phase_serving_http(model, base_dir: str, smi: str) -> None:
         if status != 200 or status2 != 200 or not voice.get("icl") or not long_body:
             fail(f"serving HTTP clone: /clone_voice {status} {voice}, /tts {status2}")
         _wav_samples(body2, up, short - 1, "/tts in the cloned voice")
-        _wav_samples(long_body[0][2], up, SERVING_CEILING - 1, "/tts beside the clone")
+        _wav_samples(long_body[0][2], up, HTTP_LONG_FRAMES - 1, "/tts beside the clone")
     log(f"serving HTTP clone (Base checkpoint, bf16, prefill buckets 32 and 96): /clone_voice "
         f"of a {len(clip) / rate:.1f} s clip (inline PCM) in {clone_s * 1e3:.1f} ms while "
         f"another request decoded: {during}; /tts in the cloned voice a WAV of {short - 1} "
         f"frames; the "
-        f"other request's WAV of {SERVING_CEILING - 1} frames; captures {captures[0]}, "
+        f"other request's WAV of {HTTP_LONG_FRAMES - 1} frames in {long_s[0]:.2f} s; "
+        f"captures {captures[0]}, "
         f"segments {engine.stats['segments']}, bucket admissions "
         f"{engine.stats['bucket_admits']} | {smi}")
     if not during:
@@ -5156,16 +5181,6 @@ def v1_specs(cfg, enc):
     return specs
 
 
-def sinusoid_positions(n_ctx: int, d: int):
-    """Whisper's sinusoid position table [n_ctx, d] (float32)."""
-    import numpy as np
-
-    half = d // 2
-    scaled = np.arange(n_ctx)[:, None] * np.exp(-np.log(10000) / (half - 1)
-                                                * np.arange(half))[None, :]
-    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
-
-
 # A minimal ONNX writer: the protobuf wire format of the few ModelProto /
 # GraphProto / NodeProto / TensorProto / AttributeProto fields a graph needs
 # (field numbers from the public onnx.proto).
@@ -5272,6 +5287,7 @@ def write_v1_checkpoint(model_dir: str, cfg, enc, seed: int, device: str = "cuda
     import torch
 
     from qwen_tts_tpu_torch.io.safetensors import save_file
+    from qwen_tts_tpu_torch.models.whisper_vq import sinusoid_positions
 
     os.makedirs(model_dir, exist_ok=True)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -5500,6 +5516,56 @@ def check_v1_parity(model_dir: str, smi: str) -> dict:
             "mel": mel_card, "wav": wav_card}
 
 
+V1_INIT_CODES = 25  # the initialised decoder's one decode: B=1 x 25 codes
+
+
+def check_v1_initialisers(cfg, enc, codec, vq, smi: str) -> None:
+    """Phase 14: the 25 Hz random initialisers on the card at the phase's
+    widths against the loaders' trees from ``write_v1_checkpoint``'s
+    checkpoint: ``init_codec_v1_params`` in bf16 against ``codec`` (the bf16
+    loader's), ``init_whisper_vq`` against ``vq`` (the encoder's loader,
+    float32 whatever the codec's dtype: its only dtype) in keys, shapes and
+    dtypes; then one B=1 x V1_INIT_CODES decode from the initialised DiT and
+    BigVGAN, which must be finite."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch.models.codec_v1 import init_codec_v1_params
+    from qwen_tts_tpu_torch.models.whisper_vq import init_whisper_vq
+    from qwen_tts_tpu_torch.tokenizer import MODEL_TYPE_25HZ, Qwen3TTSTokenizer
+
+    def specs(tree):
+        return {k: (tuple(v.shape), v.dtype, v.device.type) for k, v in _leaves(tree).items()}
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2526)
+    init = init_codec_v1_params(gen, cfg, torch.bfloat16)
+    init_vq = init_whisper_vq(gen, enc)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    for what, got, want in (("init_codec_v1_params", init, codec),
+                            ("init_whisper_vq", init_vq, vq)):
+        a, b = specs(got), specs(want)
+        if a != b:
+            fail(f"25 Hz: {what}'s tree differs from the loader's in keys, shapes, dtypes or "
+                 f"devices: {sorted(set(a.items()) ^ set(b.items()))[:4]}")
+    payload = v1_inputs(cfg, 1, V1_INIT_CODES, V1_REF_FRAMES, seed=31)
+    t0 = time.perf_counter()
+    wavs, _ = Qwen3TTSTokenizer(MODEL_TYPE_25HZ, cfg, init).decode(payload, seed=0)
+    decode_s = time.perf_counter() - t0
+    want = (V1_INIT_CODES * cfg.samples_per_code,)
+    finite = wavs[0].shape == want and bool(np.isfinite(wavs[0]).all())
+    log(f"25 Hz initialisers on the card: init_codec_v1_params (bf16, "
+        f"{len(_leaves(init))} leaves) and init_whisper_vq (f32, {len(_leaves(init_vq))} "
+        f"leaves) drawn in {init_s:.2f} s; keys, shapes and dtypes equal the loaders' trees "
+        f"of the written checkpoint; one B=1 x {V1_INIT_CODES}-code decode of the initialised "
+        f"DiT + BigVGAN in {decode_s:.2f} s: {wavs[0].shape} samples, finite {finite}, "
+        f"max |x| {float(np.abs(wavs[0]).max()):.3f} | {smi}")
+    if not finite:
+        fail(f"25 Hz: the initialised decoder gave {wavs[0].shape} samples (want {want}), "
+             f"finite {bool(np.isfinite(wavs[0]).all())}")
+
+
 def phase_tokenizer_25hz(smi: str, cfg=None, enc=None) -> None:
     """Phase 14: the 25 Hz tokenizer at the JAX package's widths
     (``CodecV1Config()``, ``WhisperVQConfig()``), random bf16 weights. f32
@@ -5537,6 +5603,7 @@ def phase_tokenizer_25hz(smi: str, cfg=None, enc=None) -> None:
         parity = check_v1_parity(model_dir, smi)
 
         bf16 = Qwen3TTSTokenizer.from_pretrained(model_dir, dtype=torch.bfloat16)
+        check_v1_initialisers(cfg, enc, bf16.params, parity["card"]._encoder[1], smi)
         _, wav16, _, _ = v1_stages(bf16, parity["payload"], noise=parity["noise"])
         log(f"25 Hz decode bf16 vs f32 on the card (reported, not held): waveform before the "
             f"clamp relative L2 {_rel_l2(wav16, parity['wav']):.3g} | {smi}")
@@ -6333,6 +6400,101 @@ def log_engine(what: str, res: dict, per_frame: int, smi: str) -> float:
     return rate
 
 
+# The tp window engine (``serving.ServingEngine`` on a tp group): the
+# continuous engine's three greedy requests, queued before ``start()`` so that
+# they make one window (their budgets differ, their controls do not: EOS
+# banned under the ceiling for all), padded to batch 4, at ENGINE_CEILING.
+# Then every rank streams TP_STREAM_FRAMES greedy frames, B=1, f32.
+WINDOW_WAIT_MS = 50
+TP_STREAM_FRAMES = 8
+
+
+def serve_windows(model, requests) -> dict:
+    """The window engine on ``model`` (on a tp group: the leader queues
+    ``requests`` before ``start()``, a follower runs ``follow()``): every
+    window's budgets and codes as ``_decode_window`` returned them, the
+    decode-attention launches, the captures, the wall; the leader also the
+    frames generated and the windows run."""
+    import torch
+
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+    from qwen_tts_tpu_torch.serving import ServingEngine
+
+    windows = []
+    before = decode_attention.launches
+    t0 = time.perf_counter()
+    with counting_captures() as captures:
+        engine = ServingEngine(model, max_batch=4, max_wait_ms=WINDOW_WAIT_MS,
+                               max_new_tokens=ENGINE_CEILING)
+        decode_window = engine._decode_window
+
+        def recording(prompts, params, limits, *args):
+            codes, info = decode_window(prompts, params, limits, *args)
+            windows.append([list(limits), [c.tolist() for c in codes]])
+            return codes, info
+
+        engine._decode_window = recording
+        out = {"leader": engine.is_leader}
+        if engine.is_leader:
+            futures = [engine.submit_text(
+                text, speaker, "english", max_new_tokens=frames + 1,
+                min_new_tokens=ENGINE_CEILING + 1, do_sample=False, subtalker_dosample=False,
+                repetition_penalty=1.0) for text, speaker, frames in requests]
+            engine.start()
+            try:
+                for f in futures:
+                    f.result(timeout=CHILD_TIMEOUT)
+            finally:
+                engine.stop()
+            out.update(frames=engine.stats["frames"], batches=engine.stats["batches"])
+        else:
+            engine.follow()
+        torch.cuda.synchronize()
+    out.update(windows=windows, captures=captures[0],
+               launches=decode_attention.launches - before, wall=time.perf_counter() - t0)
+    return out
+
+
+def stream_tp(model) -> dict:
+    """A greedy B=1 ``stream_custom_voice`` of TP_STREAM_FRAMES frames (EOS
+    banned, the budget-exhausted frame dropped) on ``model``, in the stream
+    phase's chunks: the frames, the first-packet and whole walls, the audio
+    seconds, the decode-attention launches and the first-packet graphs
+    built."""
+    import numpy as np
+    import torch
+
+    from qwen_tts_tpu_torch import pipeline as pipeline_mod
+    from qwen_tts_tpu_torch.ops.cuda.decode_attention import decode_attention
+
+    kw = dict(max_new_tokens=TP_STREAM_FRAMES + 1, min_new_tokens=TP_STREAM_FRAMES + 2,
+              do_sample=False, subtalker_dosample=False, repetition_penalty=1.0)
+    frames, built = [], []
+    originals = _recording_segments(pipeline_mod, frames)
+    graph = pipeline_mod._FirstPacketGraph
+    pipeline_mod._FirstPacketGraph = lambda *a, **k: (built.append(1), graph(*a, **k))[1]
+    before = decode_attention.launches
+    try:
+        first_s, wall, audio_s, chunks, _ = _stream_once(model, kw, TEXTS[0], "aiden",
+                                                          "english")
+        torch.cuda.synchronize()
+    finally:
+        pipeline_mod._first_packet_program, pipeline_mod.decode_segment = originals
+        pipeline_mod._FirstPacketGraph = graph
+    up = model.cfg.codec.decode_upsample_rate
+    return {"codes": np.stack(frames)[:TP_STREAM_FRAMES].tolist(), "first_s": first_s,
+            "wall": wall, "audio_s": audio_s, "chunks": [c.shape[0] // up for c in chunks],
+            "finite": all(bool(np.isfinite(c).all()) for c in chunks),
+            "launches": decode_attention.launches - before, "first_packet_graphs": len(built)}
+
+
+def stream_launches(per_frame: int) -> int:
+    """Decode-attention launches of ``stream_tp``'s stream run eagerly or
+    replayed (no capture in it): the first packet's frames, then the frames
+    its one later segment runs to the flag read after the last."""
+    return (STREAM_FIRST + replays(STREAM_CHUNK, TP_STREAM_FRAMES + 1 - STREAM_FIRST)) * per_frame
+
+
 def frame_collectives(cfg) -> int:
     """All-reduces a decode frame issues over its tp group, from the code:
     two a trunk layer (after o and after down) for every talker layer and
@@ -6570,15 +6732,18 @@ def child_nccl(rank: int, world: int, work: str, model_dir: str, marks: str) -> 
     serve = sharded_model(model, shards)
     engines = {"group": serve_engine(serve, engine_requests(0)),
                "no group": serve_engine(model, engine_requests(0))}
-    del serve
     stamps.append(("engines", time.perf_counter()))
+    # A stream on the group and one without: each first packet is captured.
+    streams = {"group": stream_tp(serve), "no group": stream_tp(model)}
+    del serve
+    stamps.append(("streams", time.perf_counter()))
     dist.destroy_process_group()
     return {"equal": bool(torch.equal(got["group"], got["no group"])),
             "repeat_equal": bool(torch.equal(got2, got["group"])),
             "probe_equal": bool(torch.equal(probe_codes, got["no group"])),
             "backend": str(backend), "codes_shape": list(got["group"].shape),
             "captured_calls": captured_calls, "summed": summed, "averaged": averaged_kernels,
-            "retaken": retaken, "engines": engines,
+            "retaken": retaken, "engines": engines, "streams": streams,
             "ms": ms, "seconds": {b[0]: round(b[1] - a[1], 2) for a, b in zip(stamps, stamps[1:])}}
 
 
@@ -6586,7 +6751,8 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
                 sft_argv: list) -> dict:
     """Phase 16 (c) and (d) in one rank of dp 2 x tp 2 over gloo, the ranks
     sharing the card: f32 weights, B = 4, greedy, the frames run eagerly
-    (gloo's collectives cannot be captured); one dp-2 VQ step at the
+    (gloo's collectives cannot be captured); the tp continuous engine, the
+    tp window engine and a tp stream; one dp-2 VQ step at the
     Whisper-VQ widths on the dp group; then the SFT CLI's run
     (``sft_12hz.train`` on ``sft_argv``) on these ranks, as under a
     launcher. Loads after the mark "go", leaves "loaded<rank>" and decodes
@@ -6641,6 +6807,10 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
     del shards, rows
     t_engine = time.perf_counter()
     engine = serve_engine(serve, engine_requests(place.dp_rank))
+    t_windows = time.perf_counter()
+    windows = serve_windows(serve, engine_requests(place.dp_rank))
+    t_stream = time.perf_counter()
+    stream = stream_tp(serve)
     engine_s = time.perf_counter() - t_engine
     del serve
 
@@ -6664,10 +6834,11 @@ def child_ranks(rank: int, world: int, work: str, model_dir: str, vq_seed: int, 
     sft_s = time.perf_counter() - t3
     torch.distributed.destroy_process_group()
     return {"codes": out.codes.cpu().tolist(), "launches": launches, "backend": str(backend),
-            "heads": heads, "dp_rank": place.dp_rank, "tp_rank": place.tp_rank,
+            "heads": heads, "rank": rank, "dp_rank": place.dp_rank, "tp_rank": place.tp_rank,
             "wait_s": t1 - t0, "setup_s": t_load - t1, "wait_timed_s": t2 - t_load,
             "decode_s": decode_s, "vq_s": vq_s, "sft_rc": rc, "engine": engine,
-            "engine_s": engine_s,
+            "engine_s": engine_s, "windows": windows, "windows_s": t_stream - t_windows,
+            "stream": stream, "stream_s": t_engine + engine_s - t_stream,
             "sft_lines": printed.getvalue().splitlines(), "sft_s": sft_s,
             "end": time.time()}
 
@@ -6874,6 +7045,18 @@ def check_nccl_one_rank(model_dir: str, child, smi: str) -> None:
     if not equal or not all(len(c) == f for c, f in zip(engines["group"]["codes"],
                                                         ENGINE_FRAMES)):
         fail("parallel NCCL engine: its codes differ from the unsharded engine's")
+    streams = res["streams"]
+    equal = streams["group"]["codes"] == streams["no group"]["codes"]
+    log(f"parallel NCCL stream: B=1, bf16, {TP_STREAM_FRAMES} greedy frames in chunks of "
+        f"{streams['group']['chunks']}, on the one-rank NCCL group against none: first-packet "
+        f"graphs built {streams['group']['first_packet_graphs']} and "
+        f"{streams['no group']['first_packet_graphs']} (a capturable group keeps the captured "
+        f"first packet), codes equal {equal}; first packet (its capture included) "
+        f"{streams['group']['first_s'] * 1e3:.1f} and {streams['no group']['first_s'] * 1e3:.1f}"
+        f" ms | {smi}")
+    if not equal or [streams[k]["first_packet_graphs"] for k in streams] != [1, 1]:
+        fail("parallel NCCL stream: the group's stream differs from the unsharded one's or "
+             "its first packet was not captured")
 
 
 def _batch_margin(model, inputs, frames, row, frame, group):
@@ -6937,8 +7120,9 @@ def start_ranks(model_dir: str, sft: dict, marks: str):
 
 
 def dp_tp_reference(model_dir: str) -> dict:
-    """Phase 16 (c)'s side on this process: the unsharded f32 run and the
-    full-batch VQ step."""
+    """Phase 16 (c)'s side on this process: the unsharded f32 run, the
+    continuous and window engines and the stream, and the full-batch VQ
+    step."""
     import torch
 
     from qwen_tts_tpu_torch.generate import generate_codes
@@ -6955,6 +7139,8 @@ def dp_tp_reference(model_dir: str) -> dict:
                          max_new_tokens=DP_TP_FRAMES, generator=None)
     t0 = time.perf_counter()
     engines = [serve_engine(model, engine_requests(d)) for d in range(2)]
+    windows = [serve_windows(model, engine_requests(d)) for d in range(2)]
+    streams = [stream_tp(model) for _ in range(2)]  # the first captures
     engines_s = time.perf_counter() - t0
     cfg, state, params, x = vq_inputs(DP_TP_VQ_SEED)
     with step_mode(x.device):
@@ -6962,7 +7148,7 @@ def dp_tp_reference(model_dir: str) -> dict:
             state, params, x, torch.Generator(device="cuda").manual_seed(DP_TP_VQ_SEED), cfg=cfg)
     return {"model": model, "inputs": inputs, "codes": ref.codes.cpu().numpy(),
             "vq_state": vq_state, "vq_indices": vq.indices.cpu(), "engines": engines,
-            "engines_s": engines_s}
+            "windows": windows, "streams": streams, "engines_s": engines_s}
 
 
 def check_dp_tp(ref: dict, res: list, work: str, wall: float, smi: str) -> int:
@@ -7036,6 +7222,27 @@ def check_dp_tp(ref: dict, res: list, work: str, wall: float, smi: str) -> int:
     return launches[0]
 
 
+def _first_apart(model, got, want, text, speaker, frames, what: str) -> list:
+    """[] if the codes ``got`` equal ``want``, else where they first part
+    (frame, group, margin, max|logit|) when that is a near tie of the
+    unsharded run (``_batch_margin``, as ``check_tp_engines`` holds it);
+    fails otherwise."""
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        fail(f"{what}: codes {got.shape}, the unsharded run's {want.shape}")
+    if np.array_equal(got, want):
+        return []
+    f, g = (int(v) for v in np.argwhere(got != want)[0])
+    margin, scale = _batch_margin(model, _parallel_prompts(model, [text], [speaker]), frames,
+                                  0, f, g)
+    if not margin <= SERVING_NEAR_TIE * scale:
+        fail(f"{what}: first differs from the unsharded run at frame {f}, group {g}, not a "
+             f"near tie (margin {margin:.4g}, limit {SERVING_NEAR_TIE} x {scale:.4g})")
+    return [(f, g, round(margin, 6), round(scale, 3))]
+
+
 def check_tp_engines(ref: dict, res: list, smi: str) -> None:
     """Phase 16 (c)'s tp engines: each dp shard's leader (tp rank 0) against
     the unsharded f32 engine on this process at the same settings (equal,
@@ -7060,19 +7267,12 @@ def check_tp_engines(ref: dict, res: list, smi: str) -> None:
         ties = []
         for k, ((text, speaker, frames), got, exp) in enumerate(zip(
                 engine_requests(d), leader["codes"], want["codes"])):
-            got, exp = np.asarray(got), np.asarray(exp)
-            if got.shape != (frames, tk.num_code_groups):
-                fail(f"parallel tp engine: dp shard {d}'s request {k} gave codes {got.shape}")
-            if np.array_equal(got, exp):
-                continue
-            f, g = (int(v) for v in np.argwhere(got != exp)[0])
-            inputs = _parallel_prompts(model, [text], [speaker])
-            margin, scale = _batch_margin(model, inputs, frames + 1, 0, f, g)
-            ties.append((k, f, g, round(margin, 6), round(scale, 3)))
-            if not margin <= SERVING_NEAR_TIE * scale:
-                fail(f"parallel tp engine: dp shard {d}'s request {k} first differs from the "
-                     f"unsharded engine at frame {f}, group {g}, not a near tie (margin "
-                     f"{margin:.4g}, limit {SERVING_NEAR_TIE} x {scale:.4g})")
+            if np.shape(got) != (frames, tk.num_code_groups):
+                fail(f"parallel tp engine: dp shard {d}'s request {k} gave codes "
+                     f"{np.shape(got)}")
+            ties += [(k,) + t for t in _first_apart(
+                model, got, exp, text, speaker, frames + 1,
+                f"parallel tp engine: dp shard {d}'s request {k}")]
         same = follower["segments"] == leader["segments"]
         log(f"parallel tp engine, dp shard {d}: the leader's codes against the unsharded "
             f"engine's {'equal' if not ties else f'first apart at near ties (request, frame, group, margin, max|logit|) {ties}'}; "
@@ -7085,6 +7285,84 @@ def check_tp_engines(ref: dict, res: list, smi: str) -> None:
                  f"leader")
     log(f"parallel tp engines: the ranks' engine seconds {[round(r['engine_s'], 1) for r in res]}"
         f"; the unsharded reference engines {ref['engines_s']:.1f} s | {smi}")
+
+
+def check_tp_windows(ref: dict, res: list, smi: str) -> None:
+    """Phase 16 (c)'s tp window engines and tp streams. Each dp shard's
+    leader against the unsharded f32 window engine on this process (one
+    window of the three requests; codes equal, or first apart at a near
+    tie), its follower's windows and decode-attention launches against the
+    leader's; every rank's stream against the unsharded stream (the second,
+    warm one), its launches against the chunk schedule, its first packet
+    eager (no graph under gloo)."""
+    model = ref["model"]
+    tk = model.cfg.talker
+    per_frame = tk.num_hidden_layers + tk.num_code_groups * tk.code_predictor.num_hidden_layers
+    frames_run = replays(ENGINE_CEILING, max(ENGINE_FRAMES) + 1)
+    limits = [f + 1 for f in ENGINE_FRAMES]
+    for d in range(2):
+        want = ref["windows"][d]
+        leader, follower = (next(r["windows"] for r in res
+                                 if r["dp_rank"] == d and r["tp_rank"] == t) for t in (0, 1))
+        ties = []
+        for k, (text, speaker, frames) in enumerate(engine_requests(d)):
+            ties += [(k,) + t for t in _first_apart(
+                model, leader["windows"][0][1][k], want["windows"][0][1][k], text, speaker,
+                frames + 1, f"parallel tp window engine, dp shard {d}'s request {k}")]
+        rate, ref_rate = leader["frames"] / leader["wall"], want["frames"] / want["wall"]
+        log(f"parallel tp window engine, dp shard {d}, tp 2 over gloo: {len(ENGINE_FRAMES)} "
+            f"greedy requests of {list(ENGINE_FRAMES)} frames in {len(leader['windows'])} "
+            f"window(s) of budgets {[w[0] for w in leader['windows']]} (batch padded to 4, "
+            f"ceiling {ENGINE_CEILING}): the leader's codes against the unsharded window "
+            f"engine's {'equal' if not ties else f'first apart at near ties (request, frame, group, margin, max|logit|) {ties}'}; "
+            f"the follower's windows equal the leader's {follower['windows'] == leader['windows']}"
+            f"; decode-attention launches leader {leader['launches']}, follower "
+            f"{follower['launches']} (predicted {frames_run * per_frame} = {frames_run} frames "
+            f"x {per_frame}), unsharded {want['launches']} (+{want['captures']} capture(s)' "
+            f"warm-up frame); {leader['frames']} frames in {leader['wall']:.2f} s, "
+            f"{rate:.2f} frames/s a leader beside the other dp shard's engine (the engine's "
+            f"construction included), unsharded window engine {want['frames']} frames in "
+            f"{want['wall']:.2f} s, {ref_rate:.2f} frames/s | {smi}")
+        if [w[0] for w in leader["windows"]] != [limits] or leader["batches"] != 1:
+            fail(f"parallel tp window engine: dp shard {d}'s requests ran in windows "
+                 f"{[w[0] for w in leader['windows']]}, not one of {limits}")
+        if (follower["windows"] != leader["windows"]
+                or not follower["launches"] == leader["launches"] == frames_run * per_frame
+                or want["launches"] != (frames_run + want["captures"]) * per_frame):
+            fail(f"parallel tp window engine: dp shard {d}'s follower ran other windows or "
+                 f"launches than its leader, or the launches are not the predicted ones")
+    warm = ref["streams"][1]
+    for r in res:
+        st = r["stream"]
+        ties = _first_apart(model, st["codes"], warm["codes"], TEXTS[0], "aiden",
+                            TP_STREAM_FRAMES + 1, f"parallel tp stream, rank {r['rank']}")
+        log(f"parallel tp stream, rank {r['rank']} (dp {r['dp_rank']}, tp {r['tp_rank']}), "
+            f"f32, B=1, {TP_STREAM_FRAMES} greedy frames in chunks of {st['chunks']}, eager "
+            f"over gloo: codes against the unsharded stream "
+            f"{'equal' if not ties else f'first apart at a near tie (frame, group, margin, max|logit|) {ties}'}; "
+            f"first-packet graphs built {st['first_packet_graphs']}; first packet "
+            f"{st['first_s'] * 1e3:.1f} ms, wall {st['wall']:.2f} s, stream RTF(audio/wall) "
+            f"{st['audio_s'] / st['wall']:.4f}, decode-attention launches {st['launches']} "
+            f"(predicted {stream_launches(per_frame)}); the rank's window engine "
+            f"{r['windows_s']:.1f} s and stream {r['stream_s']:.1f} s | {smi}")
+        if (st["first_packet_graphs"] != 0 or not st["finite"]
+                or st["chunks"] != [STREAM_FIRST, TP_STREAM_FRAMES - STREAM_FIRST]
+                or st["launches"] != stream_launches(per_frame)):
+            fail(f"parallel tp stream: rank {r['rank']} built a first-packet graph, gave "
+                 f"samples that are not finite, chunks of {st['chunks']} frames or "
+                 f"{st['launches']} launches")
+    first = ref["streams"][0]
+    log(f"parallel stream unsharded f32, B=1, {TP_STREAM_FRAMES} greedy frames: captured first "
+        f"packet (graphs built {first['first_packet_graphs']}, then "
+        f"{warm['first_packet_graphs']}); warm: first packet {warm['first_s'] * 1e3:.1f} ms, "
+        f"wall {warm['wall']:.3f} s, stream RTF(audio/wall) {warm['audio_s'] / warm['wall']:.3f}"
+        f", decode-attention launches {warm['launches']} (predicted "
+        f"{stream_launches(per_frame)}); first (capturing) {first['first_s'] * 1e3:.1f} ms "
+        f"beside the ranks | {smi}")
+    if (first["first_packet_graphs"], warm["first_packet_graphs"]) != (1, 0) or (
+            warm["launches"] != stream_launches(per_frame)):
+        fail("parallel stream unsharded: its first packet was not captured once, or the warm "
+             "stream's launches are not the predicted ones")
 
 
 def cut_checkpoint(base_dir: str, cut_dir: str, layers: int) -> None:
@@ -7220,6 +7498,7 @@ def phase_parallel(model_dir: str, base_dir: str, smi: str) -> dict:
         finally:
             shutil.rmtree(work, ignore_errors=True)
         check_tp_engines(ref, res, smi)
+        check_tp_windows(ref, res, smi)
         check_parallel_sft(sft, res, smi)
         timed("parallel NCCL", check_nccl_one_rank, model_dir, nccl, smi)
     finally:

@@ -67,3 +67,13 @@ class SpeechTokenizerEncoder:
         codes = codes[:, : self.valid_num_quantizers].cpu().numpy()
         return [np.ascontiguousarray(codes[i, :, : -(-n // self.downsample_rate)].T)
                 .astype(np.int32) for i, n in enumerate(lengths)]
+
+
+def resample_linear(wav: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
+    """A linear-interpolation resampler (host numpy, float32): the JAX
+    package's cold-path helper, kept beside ``audio.resample``."""
+    if sr_in == sr_out:
+        return np.asarray(wav, np.float32)
+    n_out = int(round(wav.shape[0] * sr_out / sr_in))
+    x_out = np.linspace(0.0, wav.shape[0] - 1, n_out)
+    return np.interp(x_out, np.arange(wav.shape[0]), wav).astype(np.float32)

@@ -14,7 +14,7 @@ import json
 import mmap
 import os
 import struct
-from typing import Dict, Iterable, List, Mapping
+from typing import Dict, Iterable, List, Mapping, Tuple
 
 import torch
 
@@ -51,6 +51,12 @@ class SafeTensorsFile:
 
     def keys(self) -> Iterable[str]:
         return self.tensors.keys()
+
+    def info(self, name: str) -> Tuple[str, Tuple[int, ...]]:
+        """(dtype string, shape) of ``name`` from the header; the data is
+        not touched."""
+        t = self.tensors[name]
+        return t["dtype"], tuple(t["shape"])
 
     def get(self, name: str) -> torch.Tensor:
         """A CPU tensor over the mapping (no copy)."""
@@ -109,10 +115,17 @@ class MultiSafeTensors:
     def keys(self) -> Iterable[str]:
         return self._index.keys()
 
-    def get(self, name: str) -> torch.Tensor:
+    def _shard(self, name: str) -> SafeTensorsFile:
         if name not in self._index:
             raise KeyError(f"tensor {name!r} not found in {self.model_dir}")
-        return self._index[name].get(name)
+        return self._index[name]
+
+    def info(self, name: str) -> Tuple[str, Tuple[int, ...]]:
+        """(dtype string, shape) of ``name`` from its shard's header."""
+        return self._shard(name).info(name)
+
+    def get(self, name: str) -> torch.Tensor:
+        return self._shard(name).get(name)
 
     def get_f32(self, name: str) -> torch.Tensor:
         return self.get(name).float()

@@ -38,10 +38,10 @@ import torch
 import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.config import BigVGANConfig, CodecV1Config, DiTConfig
-from qwen_tts_tpu_torch.models.speaker import speaker_encoder_forward
+from qwen_tts_tpu_torch.models.speaker import init_speaker_params, speaker_encoder_forward
 from qwen_tts_tpu_torch.ops.convs import causal_conv1d_cf
 from qwen_tts_tpu_torch.ops.snake import snake_beta
-from qwen_tts_tpu_torch.utils import full_f32
+from qwen_tts_tpu_torch.utils import full_f32, normal_init
 
 NEG_INF = -1e9
 ATTN_IMPLS = ("local_hs", "local", "local_hs_bo", "chunked", "chunked_hs")
@@ -683,3 +683,110 @@ def codec_v1_decode(
                          sway_coefficient=sway_coefficient, noise=noise,
                          attn_impl=attn_impl)
         return bigvgan_forward(params["bigvgan"], cfg.bigvgan, mel, aa_impl=aa_impl)
+
+
+# --------------------------------------------------------------------------
+# Random init (tests and card runs without a checkpoint)
+# --------------------------------------------------------------------------
+
+def _filled(shape, value: float, dtype, device) -> torch.Tensor:
+    return torch.full(shape, value, dtype=dtype, device=device)
+
+
+def init_dit_params(generator: torch.Generator, cfg: DiTConfig, dtype=torch.float32,
+                    device=None) -> dict:
+    """Random DiT weights in the loader's layout (linears ``[in, out]``):
+    matrices N(0, 1/fan_in), biases zeros; the ECAPA-TDNN from
+    ``init_speaker_params`` in float32, as the loader keeps it. The JAX
+    package's ``init_dit_params`` keys and shapes."""
+    device = device if device is not None else generator.device
+    h = cfg.hidden_size
+    in_dim = cfg.mel_dim + cfg.enc_dim + cfg.emb_dim + cfg.enc_emb_dim
+    qd = cfg.num_attention_heads * cfg.head_dim
+    ff = h * cfg.ff_mult
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    def zeros(n):
+        return _filled((n,), 0.0, dtype, device)
+
+    layers = [{
+        "ada_w": w((h, 6 * h), h), "ada_b": zeros(6 * h),
+        "wq": w((h, qd), h), "bq": zeros(qd),
+        "wk": w((h, qd), h), "bk": zeros(qd),
+        "wv": w((h, qd), h), "bv": zeros(qd),
+        "wo": w((qd, h), qd), "bo": zeros(h),
+        "ff1_w": w((h, ff), h), "ff1_b": zeros(ff),
+        "ff2_w": w((ff, h), ff), "ff2_b": zeros(h),
+    } for _ in range(cfg.num_hidden_layers)]
+    return {
+        "time_w1": w((256, h), 256), "time_b1": zeros(h),
+        "time_w2": w((h, h), h), "time_b2": zeros(h),
+        "codec_embed": w((cfg.num_embeds + 1, cfg.emb_dim), cfg.emb_dim),
+        "in_proj_w": w((in_dim, h), in_dim), "in_proj_b": zeros(h),
+        "spk_encoder": init_speaker_params(generator, cfg.spk_encoder_config(), torch.float32,
+                                           device),
+        "layers": layers,
+        "out_ada_w": w((h, 2 * h), h), "out_ada_b": zeros(2 * h),
+        "out_proj_w": w((h, cfg.mel_dim), h), "out_proj_b": zeros(cfg.mel_dim),
+    }
+
+
+def init_bigvgan_params(generator: torch.Generator, cfg: BigVGANConfig, dtype=torch.float32,
+                        device=None) -> dict:
+    """Random BigVGAN weights in the loader's layout (convs ``[C_out, C_in,
+    K]``, transposed convs ``[C_in, C_out, K]``): N(0, 1/(C_in K)) weights,
+    zero biases, SnakeBeta's pre-exponentiated alpha and beta ones, a
+    pre-conv in the blocks of the first two stages only, the anti-aliasing
+    filters of ``make_aa_filters`` in float32. The JAX package's
+    ``init_bigvgan_params`` keys and shapes."""
+    device = device if device is not None else generator.device
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    def ones(*shape):
+        return _filled(shape, 1.0, dtype, device)
+
+    def zeros(*shape):
+        return _filled(shape, 0.0, dtype, device)
+
+    c0 = cfg.upsample_initial_channel
+    ups_w, ups_b, resblocks = [], [], []
+    for li, k in enumerate(cfg.upsample_kernel_sizes):
+        cin, cout = c0 // 2 ** li, c0 // 2 ** (li + 1)
+        ups_w.append(w((cin, cout, k), cin * k))
+        ups_b.append(zeros(cout))
+        for ks, dil in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+            n = len(dil)
+            blk = {
+                "conv1_w": w((n, cout, cout, ks), ks * cout), "conv1_b": zeros(n, cout),
+                "conv2_w": w((n, cout, cout, ks), ks * cout), "conv2_b": zeros(n, cout),
+                "act_alpha": ones(2 * n, cout), "act_beta": ones(2 * n, cout),
+            }
+            if li <= 1:  # causal type "2" blocks carry a pre-conv and a pre-activation
+                blk.update(pre_conv_w=w((cout, cout, ks), ks * cout), pre_conv_b=zeros(cout),
+                           pre_alpha=ones(cout), pre_beta=ones(cout))
+            resblocks.append(blk)
+    c_last = c0 // 2 ** len(cfg.upsample_rates)
+    return {
+        "pre_w": w((c0, cfg.mel_dim, 5), 5 * cfg.mel_dim),
+        "pre_b": zeros(c0),
+        "ups_w": ups_w,
+        "ups_b": ups_b,
+        "resblocks": resblocks,
+        "post_alpha": ones(c_last),
+        "post_beta": ones(c_last),
+        "post_w": w((1, c_last, 7), 7 * c_last),
+        "_filters": {k: torch.as_tensor(v, device=device) for k, v in make_aa_filters().items()},
+    }
+
+
+def init_codec_v1_params(generator: torch.Generator, cfg: CodecV1Config, dtype=torch.float32,
+                         device=None) -> dict:
+    """Random 25 Hz decoder weights: ``init_dit_params`` and
+    ``init_bigvgan_params`` in turn on one generator, in ``load_codec_v1``'s
+    tree. On the ``meta`` device nothing is drawn (shapes and dtypes only)."""
+    return {"dit": init_dit_params(generator, cfg.dit, dtype, device),
+            "bigvgan": init_bigvgan_params(generator, cfg.bigvgan, dtype, device)}

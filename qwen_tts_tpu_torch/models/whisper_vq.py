@@ -27,7 +27,7 @@ import torch.nn.functional as F
 
 from qwen_tts_tpu_torch.io.safetensors import MultiSafeTensors
 from qwen_tts_tpu_torch.models.speaker import mel_filterbank
-from qwen_tts_tpu_torch.utils import Device, full_f32, resolve_device
+from qwen_tts_tpu_torch.utils import Device, full_f32, normal_init, resolve_device
 
 N_FFT = 400
 HOP = 160
@@ -271,4 +271,63 @@ def load_whisper_vq(st: MultiSafeTensors, cfg: WhisperVQConfig, device: Device =
     if (proj + "weight") in st:
         params["vq_proj_in_w"] = lin(proj + "weight")
         params["vq_proj_in_b"] = vec(proj + "bias")
+    return params
+
+
+def sinusoid_positions(n_ctx: int, d: int) -> np.ndarray:
+    """Whisper's sinusoid positional embedding [n_ctx, d] in float32, as the
+    JAX package's ``init_whisper_vq`` computes it (in float64 numpy)."""
+    half = d // 2
+    inc = np.log(10000) / (half - 1)
+    inv = np.exp(-inc * np.arange(half))
+    scaled = np.arange(n_ctx)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
+
+
+def init_whisper_vq(generator: torch.Generator, cfg: WhisperVQConfig, dtype=torch.float32,
+                    device=None) -> dict:
+    """Random Whisper-VQ weights in ``load_whisper_vq``'s layout (convs
+    ``[C_out, C_in, K]``, linears ``[in, out]``, the codebook ``[size,
+    dim]``): N(0, 1/fan_in) weights, zero biases, LayerNorm weights ones, the
+    sinusoid positions; ``ds_w`` / ``ds_b`` only when ``audio_vq_ds_rate`` >
+    1, the codebook's input projection only when its dim is not
+    ``n_state``. The JAX package's ``init_whisper_vq`` keys and shapes. On
+    the ``meta`` device nothing is drawn."""
+    device = device if device is not None else generator.device
+    d = cfg.n_state
+
+    def w(shape, fan_in):
+        return normal_init(shape, fan_in, generator, dtype, device)
+
+    def full(n, value):
+        return torch.full((n,), value, dtype=dtype, device=device)
+
+    layers = [{
+        "attn_ln_w": full(d, 1.0), "attn_ln_b": full(d, 0.0),
+        "wq": w((d, d), d), "bq": full(d, 0.0),
+        "wk": w((d, d), d),
+        "wv": w((d, d), d), "bv": full(d, 0.0),
+        "wo": w((d, d), d), "bo": full(d, 0.0),
+        "mlp_ln_w": full(d, 1.0), "mlp_ln_b": full(d, 0.0),
+        "mlp1_w": w((d, 4 * d), d), "mlp1_b": full(4 * d, 0.0),
+        "mlp2_w": w((4 * d, d), 4 * d), "mlp2_b": full(d, 0.0),
+    } for _ in range(cfg.audio_vq_layers)]
+    dim = cfg.audio_vq_codebook_dim
+    params = {
+        "conv1_w": w((d, cfg.n_mels, 3), 3 * cfg.n_mels),
+        "conv1_b": full(d, 0.0),
+        "conv2_w": w((d, d, 3), 3 * d),
+        "conv2_b": full(d, 0.0),
+        "positional_embedding": torch.from_numpy(sinusoid_positions(cfg.n_ctx, d)).to(
+            device=device, dtype=dtype),
+        "layers": layers,
+        "vq_embed": w((cfg.audio_vq_codebook_size, dim), dim),
+    }
+    ds = cfg.audio_vq_ds_rate
+    if ds > 1:
+        params["ds_w"] = w((d, d, ds), ds * d)
+        params["ds_b"] = full(d, 0.0)
+    if dim != d:
+        params["vq_proj_in_w"] = w((d, dim), d)
+        params["vq_proj_in_b"] = full(dim, 0.0)
     return params

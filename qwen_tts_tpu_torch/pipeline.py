@@ -11,7 +11,8 @@ decode loop's segments finish. The model runs on one device, CUDA unless
 ``from_pretrained`` is given another; ``codec_dtype=torch.bfloat16`` runs the
 codec in bf16, its narrow vocoder blocks as fused kernels. On the card the
 decode loop replays a captured frame (``generate.py``), and a stream's first
-packet and its later codec windows are CUDA graphs as well (``graphs.py``).
+packet and its later codec windows are CUDA graphs as well (``graphs.py``);
+under a gloo tp group the frames and the first packet run eagerly.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from qwen_tts_tpu_torch.generate import (
     fill_trailing,
     generate_codes,
     icl_ref_codes,
+    tp_groups,
     trailing_rows,
 )
 from qwen_tts_tpu_torch.io.loader import load_checkpoint
@@ -51,6 +53,7 @@ from qwen_tts_tpu_torch.models.speaker import mel_spectrogram, speaker_encoder_f
 from qwen_tts_tpu_torch.models.subtalker import quantize_subtalker_tables_int8, st_env_token
 from qwen_tts_tpu_torch.models.trunk import quantize_trunk_int8
 from qwen_tts_tpu_torch.ops.cuda.subtalker_step import pack_subtalker_weights
+from qwen_tts_tpu_torch.parallel import comm
 from qwen_tts_tpu_torch.utils import Device, resolve_device
 
 MaybeList = Union[str, List[str]]
@@ -91,10 +94,12 @@ def _first_packet_program(
     request to first audio. Returns (state, codes [B, first_segment, G],
     waveform [B, first_segment * upsample]). On the card all of it is one
     CUDA graph replay (``_FirstPacketGraph``), as the JAX package runs it as
-    one device program; on the CPU it runs eagerly."""
+    one device program; on the CPU it runs eagerly, and so it does on the
+    card under a tp group whose collectives a graph cannot hold (gloo's:
+    ``comm.capturable``, the test ``generate._decode`` makes)."""
     kw = dict(sampling=sampling, st_sampling=st_sampling, max_cache_len=max_cache_len,
               first_segment=first_segment, kv_int8=kv_int8)
-    if not embeds.is_cuda:
+    if not embeds.is_cuda or not comm.capturable(tp_groups(talker_cfg)):
         return _first_packet_eager(talker_params, st_params, codec_params, talker_cfg, dec_cfg,
                                    embeds, mask, trailing, generator=generator,
                                    step_limit=step_limit, **kw)

@@ -68,6 +68,9 @@ def normal_init(shape, fan_in, generator: torch.Generator, dtype=torch.float32,
                 device=None) -> torch.Tensor:
     """N(0, 1) / sqrt(fan_in) drawn in f32 on ``generator``'s device (the JAX
     initialisers' distribution), cast to ``dtype`` on ``device`` (the
-    generator's unless given)."""
+    generator's unless given). On the ``meta`` device nothing is drawn: the
+    tensor has the shape and dtype only."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=generator, device=generator.device) / math.sqrt(fan_in)
     return w.to(device=device if device is not None else generator.device, dtype=dtype)

@@ -99,3 +99,24 @@ def test_module_entry_point_runs_the_cli():
     for flag in ("--ref-audio", "--ref-text", "--x-vector-only", "--voice-file",
                  "--save-voice", "--greedy"):
         assert flag in out.stdout
+
+
+def test_console_scripts_resolve_to_the_ports_mains():
+    """``pyproject.toml`` names the port's three commands beside the JAX
+    package's, and each target imports to a callable ``main`` of the port."""
+    import importlib
+    import tomllib
+
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    port = {k: v for k, v in scripts.items() if v.startswith("qwen_tts_tpu_torch.")}
+    assert port == {"qwen-tts-torch": "qwen_tts_tpu_torch.cli:main",
+                    "qwen-tts-torch-serve": "qwen_tts_tpu_torch.server:main",
+                    "qwen-tts-torch-demo": "qwen_tts_tpu_torch.demo:main"}
+    assert {k: v for k, v in scripts.items() if k not in port} == {
+        "qwen-tts": "qwen_tts_tpu.cli:main", "qwen-tts-serve": "qwen_tts_tpu.server:main",
+        "qwen-tts-demo": "qwen_tts_tpu.demo:main"}
+    for target in port.values():
+        module, attr = target.split(":")
+        fn = getattr(importlib.import_module(module), attr)
+        assert callable(fn) and fn.__module__ == module, target

@@ -56,3 +56,41 @@ def test_entry_points_need_a_device_without_a_card(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         convert_params({}, {})
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_public_surface_is_the_jax_packages():
+    """``__all__`` names what the JAX package's does, and each name resolves
+    to the port's own object, from the module that defines it."""
+    import qwen_tts_tpu
+
+    assert qwen_tts_tpu_torch.__all__ == qwen_tts_tpu.__all__
+    assert qwen_tts_tpu_torch.__version__ == qwen_tts_tpu.__version__
+    for name in qwen_tts_tpu_torch.__all__:
+        obj = getattr(qwen_tts_tpu_torch, name)
+        assert obj.__module__.startswith("qwen_tts_tpu_torch."), (name, obj.__module__)
+        assert obj is not getattr(qwen_tts_tpu, name)
+    with pytest.raises(AttributeError):
+        qwen_tts_tpu_torch.NoSuchName  # noqa: B018
+
+
+_LIGHT = r"""
+import sys
+import qwen_tts_tpu_torch
+loaded = sorted(m for m in sys.modules if m.startswith(("qwen_tts_tpu_torch.", "jax")))
+print(loaded)
+assert not loaded, loaded
+from qwen_tts_tpu_torch import Qwen3TTSModel, ServingEngine
+assert "jax" not in sys.modules and "qwen_tts_tpu" not in sys.modules
+print(Qwen3TTSModel.__module__, ServingEngine.__module__)
+"""
+
+
+def test_importing_the_package_alone_stays_light():
+    """``import qwen_tts_tpu_torch`` loads none of its modules (so neither
+    ``pipeline`` nor jax); a public name then loads its own module, still
+    without jax."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _LIGHT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "qwen_tts_tpu_torch.pipeline qwen_tts_tpu_torch.serving" in out.stdout

@@ -114,3 +114,57 @@ def test_loader_reads_fixture_like_numpy_reader(ckpt):
     finally:
         a.close()
         b.close()
+
+
+def _info_tensors(seed: int):
+    g = torch.Generator().manual_seed(seed)
+    return {
+        f"f32.{seed}": torch.randn(3, 5, generator=g),
+        f"bf16.{seed}": torch.randn(4, 2, 3, generator=g).bfloat16(),
+        f"i8.{seed}": torch.randint(-128, 127, (7,), generator=g, dtype=torch.int8),
+        f"i32.{seed}": torch.arange(6, dtype=torch.int32).reshape(2, 3),
+        f"empty.{seed}": torch.zeros(0, 4),
+    }
+
+
+@pytest.mark.parametrize("layout", ["single", "sharded"])
+def test_info_reads_dtype_and_shape_from_the_header_as_jax(tmp_path, layout):
+    """``info`` of both readers equals the JAX reader's for every key, of one
+    file and of a directory of shards with an index; an unknown name raises
+    ``KeyError`` as ``get`` does."""
+    import json
+
+    from qwen_tts_tpu.io.safetensors import MultiSafeTensors as JMulti
+    from qwen_tts_tpu.io.safetensors import SafeTensorsFile as JFile
+    from qwen_tts_tpu_torch.io.safetensors import SafeTensorsFile
+
+    shards = [_info_tensors(0)] + ([_info_tensors(1)] if layout == "sharded" else [])
+    names = [f"model-{i:05d}-of-{len(shards):05d}.safetensors" for i in range(len(shards))]
+    for tensors, name in zip(shards, names):
+        save_file(tensors, str(tmp_path / name))
+    if layout == "sharded":
+        with open(tmp_path / "model.safetensors.index.json", "w") as f:
+            json.dump({"weight_map": {k: n for t, n in zip(shards, names) for k in t}}, f)
+    want_dtypes = {torch.float32: "F32", torch.bfloat16: "BF16", torch.int8: "I8",
+                   torch.int32: "I32"}
+    readers = [(MultiSafeTensors(str(tmp_path)), JMulti(str(tmp_path)))] + [
+        (SafeTensorsFile(str(tmp_path / n)), JFile(str(tmp_path / n))) for n in names]
+    try:
+        multi, j_multi = readers[0]
+        assert sorted(multi.keys()) == sorted(k for t in shards for k in t)
+        for port, jax_reader in readers:
+            for key in port.keys():
+                info = port.info(key)
+                assert info == jax_reader.info(key), key
+                t = {k: v for s in shards for k, v in s.items()}[key]
+                assert info == (want_dtypes[t.dtype], tuple(t.shape)), key
+            with pytest.raises(KeyError):
+                port.info("missing")
+            with pytest.raises(KeyError):
+                port.get("missing")
+        with pytest.raises(KeyError):
+            j_multi.info("missing")
+    finally:
+        for port, jax_reader in readers:
+            port.close()
+            jax_reader.close()

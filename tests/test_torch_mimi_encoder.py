@@ -143,3 +143,16 @@ def test_codes_do_not_change_with_batch_mates_or_padding(setup):
     for mates in ([w2], [w3], [w2, w3]):
         np.testing.assert_array_equal(te.encode([w1] + mates, 24000)[0], alone)
         np.testing.assert_array_equal(te.encode(mates + [w1], 24000)[-1], alone)
+
+
+@pytest.mark.parametrize("rates", [(24000, 16000), (16000, 24000), (22050, 24000),
+                                   (24000, 24000)])
+def test_resample_linear_equals_jax(rates):
+    """The cold-path linear resampler, bit for bit the JAX package's."""
+    from qwen_tts_tpu.codec_encoder import resample_linear as j_resample
+    from qwen_tts_tpu_torch.codec_encoder import resample_linear
+
+    wav = np.random.default_rng(sum(rates)).standard_normal(1001).astype(np.float32)
+    got, want = resample_linear(wav, *rates), j_resample(wav, *rates)
+    assert got.dtype == want.dtype == np.float32
+    np.testing.assert_array_equal(got, want)

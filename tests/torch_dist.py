@@ -171,6 +171,20 @@ def train_and_vq(sft: dict, vq: list):
     return train_steps(**sft), [vq_steps(**run) for run in vq]
 
 
+def _tp_model(cfg, talker, subtalker, codec):
+    """A ``Qwen3TTSModel`` on this rank's tp shards of the world (the codec
+    whole)."""
+    import dataclasses
+
+    from qwen_tts_tpu_torch.parallel.mesh import make_mesh, shard_params
+    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
+
+    mesh = make_mesh(tp=torch.distributed.get_world_size())
+    shards = shard_params(mesh, talker, subtalker, cfg.talker)
+    return Qwen3TTSModel(dataclasses.replace(cfg, talker=shards.cfg), shards.talker,
+                         shards.subtalker, codec)
+
+
 def tp_engine(cfg, talker, subtalker, codec, requests, wait):
     """``ContinuousBatchingEngine`` on a tp group of the world's ranks (f32
     on the CPU): tp rank 0 leads and takes ``requests`` in turn, every other
@@ -183,20 +197,14 @@ def tp_engine(cfg, talker, subtalker, codec, requests, wait):
     ``decode_segment`` was given them) and codes; the leader also the
     commands it broadcast, what it handed the codec, each result or error,
     and when it called ``stop()``; a follower when ``follow()`` returned."""
-    import dataclasses
     import time
 
     import numpy as np
 
     from qwen_tts_tpu_torch import continuous
     from qwen_tts_tpu_torch.generate import Prompt, build_prompt
-    from qwen_tts_tpu_torch.parallel.mesh import make_mesh, shard_params
-    from qwen_tts_tpu_torch.pipeline import Qwen3TTSModel
 
-    mesh = make_mesh(tp=torch.distributed.get_world_size())
-    shards = shard_params(mesh, talker, subtalker, cfg.talker)
-    model = Qwen3TTSModel(dataclasses.replace(cfg, talker=shards.cfg), shards.talker,
-                          shards.subtalker, codec)
+    model = _tp_model(cfg, talker, subtalker, codec)
     segments, commands, decoded = [], [], []
     segment = continuous.decode_segment
 
@@ -267,3 +275,124 @@ def tp_engine(cfg, talker, subtalker, codec, requests, wait):
     out.update(results=results, commands=commands, decoded=decoded,
                requests=engine.stats["requests"], failed_admits=engine.stats["failed_admits"])
     return out
+
+
+def tp_windows(cfg, talker, subtalker, codec, queued, later, wait):
+    """``ServingEngine`` on a tp group of the world's ranks (f32 on the
+    CPU): tp rank 0 leads, every other rank runs ``follow()``. The leader
+    first calls ``follow()`` (a wrong role), submits ``queued`` before
+    ``start()`` (one window per set of sampling controls), waits for them,
+    then submits each of ``later`` alone and waits for it. Each request is
+    (name, ids, submit_ids keywords, pad): ``pad`` widens the prompt by that
+    many hidden units. A follower first calls ``start()`` and ``submit_ids``
+    (wrong roles). Every rank records each window's frame budgets and codes
+    as ``_decode_window`` returned them; the leader also what it handed the
+    codec, each result or error and when it called ``stop()``; a follower
+    when ``follow()`` returned."""
+    import time
+
+    import numpy as np
+
+    from qwen_tts_tpu_torch import serving
+    from qwen_tts_tpu_torch.generate import Prompt
+
+    model = _tp_model(cfg, talker, subtalker, codec)
+    engine = serving.ServingEngine(model, max_batch=4, max_wait_ms=200, max_new_tokens=16)
+    windows, wrong = [], []
+    decode_window = engine._decode_window
+
+    def recording(prompts, params, limits, *args):
+        codes, info = decode_window(prompts, params, limits, *args)
+        windows.append((list(limits), [c.copy() for c in codes], params.do_sample))
+        return codes, info
+
+    engine._decode_window = recording
+    out = {"leader": engine.is_leader, "windows": windows, "wrong": wrong}
+
+    def attempt(name, fn, *args, **kw):
+        try:
+            fn(*args, **kw)
+            wrong.append((name, "allowed"))
+        except RuntimeError as exc:
+            wrong.append((name, str(exc)))
+
+    if not engine.is_leader:
+        attempt("start", engine.start)
+        attempt("submit_ids", engine.submit_ids, np.asarray(queued[0][1]), **queued[0][2])
+        engine.follow()
+        out.update(returned=time.time(), failed_windows=engine.stats["failed_windows"])
+        return out
+
+    attempt("follow", engine.follow)
+    decode = model.decode_codes
+    decoded = []
+    model.decode_codes = lambda codes, **kw: (
+        decoded.extend(np.asarray(c).copy() for c in codes), decode(codes, **kw))[1]
+    build = serving._build_prompt
+    results = {}
+
+    def submit(ids, kw, pad):
+        serving._build_prompt = build if not pad else lambda *a, **k: Prompt(
+            *(torch.nn.functional.pad(t, (0, pad)) for t in build(*a, **k)))
+        try:
+            return engine.submit_ids(np.asarray(ids), **kw)
+        finally:
+            serving._build_prompt = build
+
+    def settle(futures):
+        for name, f in futures.items():
+            try:
+                results[name] = f.result(timeout=wait)
+            except Exception as exc:  # recorded for the test
+                results[name] = f"{type(exc).__name__}: {exc}"
+
+    futures = {name: submit(ids, kw, pad) for name, ids, kw, pad in queued}
+    engine.start()
+    try:
+        settle(futures)
+        for name, ids, kw, pad in later:
+            settle({name: submit(ids, kw, pad)})
+    finally:
+        out["stop"] = time.time()
+        engine.stop()
+    out.update(results=results, decoded=decoded, stats=dict(engine.stats))
+    return out
+
+
+class FixedTokenizer:
+    """A text tokenizer that gives the same ids for every text."""
+
+    def __init__(self, ids):
+        self.ids = list(ids)
+
+    def __call__(self, text):
+        return {"input_ids": self.ids}
+
+
+def tp_stream(cfg, talker, subtalker, codec, ids, speaker, language, kwargs):
+    """``stream_custom_voice`` on this rank's tp shards (every rank streams):
+    the chunks, every frame its segments generated (from each segment's
+    ``num_gen`` delta) and the rank's talker heads."""
+    import numpy as np
+
+    from qwen_tts_tpu_torch import pipeline
+
+    model = _tp_model(cfg, talker, subtalker, codec)
+    model.tokenizer = FixedTokenizer(ids)
+    frames = []
+
+    def recording(fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            state, seg = out[0], out[1]
+            n = int(state.num_gen[0])
+            frames.extend(seg[0, : n - len(frames)].numpy().astype(np.int64))
+            return out
+        return wrapped
+
+    pipeline._first_packet_program = recording(pipeline._first_packet_program)
+    pipeline.decode_segment = recording(pipeline.decode_segment)
+    chunks = [w for w, _ in model.stream_custom_voice("text", speaker, language, **kwargs)]
+    return {"chunks": chunks, "frames": np.stack(frames),
+            "heads": (model.cfg.talker.num_attention_heads,
+                      model.cfg.talker.num_key_value_heads)}
